@@ -8,21 +8,30 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
 
 1. Build the sizing-bisection kernel from ``wva_tpu_torch/analyzers/
-   queueing/csrc/sizing_bisection.cu`` and print the build time, the
-   compiler's register report, and the card's name and power limit.
+   queueing/csrc/sizing_bisection.cu`` and print the build time, each
+   instantiation's registers, spills and shared memory (it fails on a
+   spill), the SASS instructions per 32-state chunk, and the card's name
+   and power limit.
 2. Hold the kernel against its plain PyTorch version on the card: seeded
-   populations at C in {1, 77, 1024, 8192} and k_cols in {256, 512, 2048}
-   at rtol 2e-3, disabled targets at 1e-5 through ``size_batch``, and three
-   bitwise checks (a row is unchanged by batch padding, by row order, and
-   by a wider k_cols). Time both at C=1024 and C=8192, k_cols=2048 with
-   CUDA events, beside the bound the card allows for the same work.
+   populations at C in {1, 77, 1024, 8192} and k_cols in {256, 512, 1024,
+   2048} (every NV instantiation) at rtol 2e-3, disabled targets at 1e-5
+   through ``size_batch``, and bitwise checks: a row is unchanged by batch
+   padding, by row order, by a wider k_cols (256 -> 1024, 512 -> 2048, and
+   256 -> 2048 for rows of small k), by computing the states past k, by
+   the rows per block, and by the order in which warps take rows. Time,
+   with CUDA events, the wrapper as the sizing path calls it, the launch
+   alone at 4 and 8 rows per block, the row order, and the plain version,
+   at C=1024 and C=8192 with k_cols=2048, beside the bound the card
+   allows for the same work. Time the row order's rule at half a wave to
+   four waves, at k_cols 512 and 2048.
 3. Drive the port's main path at full size: a seeded fleet of 1000 models x
    2 variants (v5e-8, v5p-8) through 3 ticks of ``run_slo_pass``, 15 s
    apart on a FakeClock — once through the kernel, once with analyzers
    forced to the plain version on the card. Target replicas must be equal,
    per-replica capacities agree at rtol 2e-3, and the kernel must launch
-   exactly once per tick. Then time the kernel and the plain version on
-   the slice's own sizing batch.
+   exactly once per tick. Then time the same on the slice's own sizing
+   batch (C=2048, k_cols=512); the wrapper's time there is the kernel's
+   ``ms``.
 4. Print one JSON line describing every kernel of the path.
 5. Print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -30,7 +39,9 @@ Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
 
+import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,16 +71,8 @@ from wva_tpu_torch.utils.clock import FakeClock
 
 RTOL = 2e-3
 RTOL_DISABLED = 1e-5
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# Float32 operations per chain state per lane per bisection iteration:
-# n*log(lam) - clm (2), the -1e30 clamp (1), the running max (1),
-# logp - m (1), exp (1), sum w (1), sum n*w (2), sum min(n, B)*w (2).
-OPS_PER_STATE_PASS = 11
-ITERS = qm._BISECTION_ITERS
-LANES = 2
+INSTANTIATIONS = {8, 16, 32, 64}  # values per lane (NV), k_cols 256..2048
+ROWS_TRIED = (4, 8)  # rows per block timed; the sizing path runs 8
 
 CUDA = torch.device("cuda")
 
@@ -94,16 +97,45 @@ def phase_build():
     seconds = time.perf_counter() - t0
     log(f"[build] {path.name}: {seconds:.2f} s"
         + ("" if fresh else " (already built)"))
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]", line.strip())
+    resources = _build.resources(_build.build_log())
+    for r in resources:
+        log(f"[build] NV={r['values_per_lane']}: {r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+            f"loads, {r['stack']} B stack, {r['smem']} B shared memory")
+    require({r["values_per_lane"] for r in resources} == INSTANTIATIONS,
+            f"instantiations in the compiler's report: {resources}")
+    require(not any(r["spill_stores"] or r["spill_loads"] for r in resources),
+            "an instantiation spills registers")
+    per_chunk = sass_per_chunk(path)
+    log(f"[build] SASS per chunk of 32 states (NV=64 less NV=32, over 32): "
+        f"{sum(per_chunk.values()):.2f} instructions: "
+        + ", ".join(f"{op} {n:g}" for op, n in per_chunk.items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
-    return card
+    return card, resources
+
+
+def sass_per_chunk(library):
+    """Instructions per 32-state chunk in the compiled kernel, by opcode:
+    the NV=64 instantiation's code less the NV=32 one's, over the 32 chunks
+    it adds. Each chunk's code runs in every iteration, except its load."""
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass", str(library)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        nv = re.search(r"sizing_bisection_kernelILi(\d+)E", fn)
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", ins.strip()).split()[0].split(".")[0]
+            for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn))
+        counts[int(nv.group(1))] = ops
+    require({32, 64} <= set(counts), f"SASS functions: {sorted(counts)}")
+    diff = counts[64] - counts[32]
+    return {op: n / 32 for op, n in diff.most_common()}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -168,20 +200,6 @@ class Errors:
         return rel
 
 
-def bound(cand, k_cols):
-    """(bound_ms, bound_by) for one bisection call on ``cand``: the chain
-    states each row needs (its occupancy bound k) read once, coefficients,
-    targets, bounds and the output moved once, and the operations of 48
-    iterations x 2 lanes over those states."""
-    states = float(torch.clamp(cand.k, max=k_cols).sum())
-    c = cand.alpha.shape[0]
-    nbytes = 4.0 * (states + c * (8 + 2 + 2 + 2 + 2))
-    ops = float(ITERS * LANES * OPS_PER_STATE_PASS) * states
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations")
-
-
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -195,32 +213,74 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def launch_args(args):
+    """The kernel's own arguments for ``args``, as the wrapper builds them:
+    the output and the launch order made once, so that a timing holds the
+    launch alone."""
+    clm, _, cand, _, _, _ = args
+    out = torch.empty((2, clm.shape[0]), dtype=torch.float32, device=CUDA)
+    c, k_cols = clm.shape
+    nv = sizing_kernel.launch_shape(c, k_cols).values_per_lane
+    wave = sizing_kernel.rows_per_wave(CUDA, nv)
+    return (*args, out), dict(
+        order=sizing_kernel.launch_order(cand.k, k_cols, wave))
+
+
 def time_kernel_and_plain(args, err):
     """Check the kernel against the plain version on ``args``, then time
-    both with CUDA events, in turns (plain, kernel, kernel, plain)."""
+    with CUDA events: the wrapper as the sizing path calls it (``ms``),
+    the launch alone at each rows per block, without the
+    skip past k, and with rows in place where the wrapper orders them, the
+    order alone, and the plain version: plain first and last, the rest in
+    turns between."""
     clm, _, cand, _, _, _ = args
     c, k_cols = clm.shape
-    err.check(sizing_kernel.sizing_bisection(*args),
-              sizing_kernel.sizing_bisection_plain(*args), RTOL,
-              f"timed C={c} k_cols={k_cols}")
-    kernel = lambda: sizing_kernel.sizing_bisection(*args)  # noqa: E731
-    plain = lambda: sizing_kernel.sizing_bisection_plain(*args)  # noqa: E731
-    p1 = time_ms(plain, 3)
-    k1 = time_ms(kernel, 20)
-    k2 = time_ms(kernel, 20)
-    p2 = time_ms(plain, 3)
-    bound_ms, bound_by = bound(cand, k_cols)
-    log(f"[time] C={c} k_cols={k_cols}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-        f"{p1:.3f}/{p2:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        "library: none")
-    return dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                bound_ms=bound_ms, bound_by=bound_by)
+    want = sizing_kernel.sizing_bisection_plain(*args)
+    got = sizing_kernel.sizing_bisection(*args)
+    err.check(got, want, RTOL, f"timed C={c} k_cols={k_cols}")
+    largs, kw = launch_args(args)
+    variants = {f"R={r}": dict(kw, rows_per_block=r) for r in ROWS_TRIED}
+    variants["no skip"] = dict(kw, skip_past_k=False)
+    if kw["order"] is not None:
+        variants["rows in place"] = dict(kw, order=None)
+    for name, options in variants.items():
+        out = sizing_kernel.launch(*largs, **options).clone()
+        require(torch.equal(out, got), f"{name} changed a row's bits")
+    calls = {name: (lambda o=o: sizing_kernel.launch(*largs, **o))
+             for name, o in variants.items()}
+    calls["wrapper"] = lambda: sizing_kernel.sizing_bisection(*args)
+    if kw["order"] is not None:
+        calls["order"] = lambda: sizing_kernel.rows_by_k(cand.k)
+    runs = {name: [] for name in calls}
+    p1 = time_ms(lambda: sizing_kernel.sizing_bisection_plain(*args), 3)
+    for turn in (list(calls), list(calls)[::-1]):
+        for name in turn:
+            runs[name].append(time_ms(calls[name], 20))
+    p2 = time_ms(lambda: sizing_kernel.sizing_bisection_plain(*args), 3)
+    ms = {name: sum(t) / len(t) for name, t in runs.items()}
+    work = sizing_kernel.work(cand, k_cols)
+    bound_ms, term = work.bound()
+    terms = work.bound_terms_ms()
+    launch_ms = ms[f"R={sizing_kernel.ROWS_PER_BLOCK}"]
+    log(f"[time] C={c} k_cols={k_cols}: "
+        + ", ".join(f"{n} {'/'.join(f'{x:.4f}' for x in t)}"
+                    for n, t in runs.items())
+        + f" ms; plain {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({term}; "
+        + ", ".join(f"{n} {x:.4f}" for n, x in terms.items())
+        + f"); wrapper at {100 * bound_ms / ms['wrapper']:.1f}% and launch at "
+        f"{100 * bound_ms / launch_ms:.1f}% of the bound; library: none")
+    return dict(kernel_ms=ms["wrapper"], launch_ms=launch_ms,
+                plain_ms=(p1 + p2) / 2, ordered=kw["order"] is not None,
+                ms_by_variant=ms, bound_ms=bound_ms,
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bounds_ms=terms, states=work.states,
+                exps=work.exps)
 
 
 def phase_kernel_vs_plain():
     err = Errors()
     seed = 100
-    for k_cols, k_lo in ((256, 128), (512, 128), (2048, 512)):
+    for k_cols, k_lo in ((256, 128), (512, 128), (1024, 256), (2048, 512)):
         for n in (1, 77, 1024, 8192):
             seed += 1
             cand, targets = population(n, seed, k_lo, k_cols)
@@ -255,21 +315,67 @@ def phase_kernel_vs_plain():
     permuted = sizing_kernel.sizing_bisection(*bisection_args(cp, tp, 512))
     require(torch.equal(permuted, full[:, perm.to(CUDA)]),
             "row order changed a row's bits")
-    wide_clm = qm._cum_log_mu(cand, 2048)
-    wide = sizing_kernel.sizing_bisection(
-        *bisection_args(cand, targets, 2048, clm=wide_clm))
-    narrow = sizing_kernel.sizing_bisection(*bisection_args(
-        cand, targets, 512, clm=wide_clm[:, :512].contiguous()))
-    require(torch.equal(wide, narrow), "k_cols=2048 changed a row's bits")
-    log("[kernel] bitwise: padding, permutation and k_cols 512->2048 hold")
+    for (cand, targets), narrow_cols, wide_cols in (
+            ((cand, targets), 512, 2048),
+            (population(128, 301, 128, 256), 256, 1024),
+            (population(128, 302, 8, 64), 256, 2048)):
+        wide_clm = qm._cum_log_mu(cand, wide_cols)
+        wide = sizing_kernel.sizing_bisection(
+            *bisection_args(cand, targets, wide_cols, clm=wide_clm))
+        narrow = sizing_kernel.sizing_bisection(*bisection_args(
+            cand, targets, narrow_cols,
+            clm=wide_clm[:, :narrow_cols].contiguous()))
+        require(torch.equal(wide, narrow),
+                f"k_cols {narrow_cols} -> {wide_cols} changed a row's bits")
+    # The skip past k: the small-k rows, with every chunk of 2048 computed.
+    largs, kw = launch_args(bisection_args(cand, targets, 2048, clm=wide_clm))
+    full = sizing_kernel.launch(*largs, **kw, skip_past_k=False)
+    require(torch.equal(full, wide), "the skip past k changed a row's bits")
+    log("[kernel] bitwise: padding, permutation, k_cols 512->2048, "
+        "256->1024 and 256->2048 (k < 64), and the skip past k hold")
 
-    # Timing at the bench.py solver-microbench shapes.
+    # Timing at the bench.py solver-microbench shapes, and one row past the
+    # wave at k_cols=512 (NV=16), where the wrapper starts to order rows.
     timings = {}
     for n in (1024, 8192):
         cand, targets = population(n, 400 + n, 512, 2048, bench=True)
         timings[f"C={n} k_cols=2048"] = time_kernel_and_plain(
             bisection_args(cand, targets, 2048), err)
+    timings["order rule"] = order_rule()
     return err, timings
+
+
+def order_rule():
+    """The wrapper orders rows by decreasing k once a batch's chain holds
+    more states than one wave of 2048-state rows. Time, around that rule, the launch with rows in place against the sort and the ordered
+    launch together (both with the host running ahead, as on the sizing
+    path), at k_cols 512, 1024 and 2048 with k from a quarter of k_cols up
+    (NV = 16, 32, 64)."""
+    found = {}
+    for k_cols, k_lo in ((512, 128), (1024, 256), (2048, 512)):
+        nv = sizing_kernel.launch_shape(1, k_cols).values_per_lane
+        wave = sizing_kernel.rows_per_wave(CUDA, nv)
+        for n in (wave // 2, wave + 1, 2 * wave + 1, 4 * wave):
+            cand, targets = population(n, 600 + n, k_lo, k_cols, bench=True)
+            largs, kw = launch_args(bisection_args(cand, targets, k_cols))
+            sorts = n * k_cols > wave * sizing_kernel.K_COLS_MAX
+            require((kw["order"] is not None) == sorts,
+                    f"C={n}, wave {wave}: the rule was not applied")
+            calls = {
+                "in place": lambda: sizing_kernel.launch(*largs),
+                "sorted": lambda: sizing_kernel.launch(
+                    *largs, order=sizing_kernel.rows_by_k(cand.k))}
+            runs = {name: [] for name in calls}
+            for turn in (list(calls), list(calls)[::-1]):
+                for name in turn:
+                    runs[name].append(time_ms(calls[name], 20))
+            key = f"C={n} k_cols={k_cols}"
+            found[key] = {name: sum(t) / len(t) for name, t in runs.items()}
+            log(f"[order] {key} ({n / wave:.2f} waves of {wave}): "
+                + ", ".join(f"{name} {'/'.join(f'{x:.4f}' for x in t)}"
+                            for name, t in runs.items())
+                + f" ms; the wrapper {'sorts' if sorts else 'does not'}")
+    return found
 
 
 # ---------------------------------------------------------------- phase 3
@@ -417,7 +523,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    card = phase_build()
+    card, resources = phase_build()
     err, bench_timings = phase_kernel_vs_plain()
     launches, t = phase_slice(err)
     log(json.dumps({"kernels": [{
@@ -430,12 +536,18 @@ def main():
         "max_rel_err": err.max_rel,
         "ms": t["kernel_ms"],
         "kernel_ms": t["kernel_ms"],
+        "launch_ms": t["launch_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
+        "bound_term": t["bound_term"],
+        "bounds_ms": t["bounds_ms"],
         "library_ms": None,
         "shape": "the slice's sizing call",
+        "rows_per_block": sizing_kernel.ROWS_PER_BLOCK,
+        "ms_by_variant": t["ms_by_variant"],
         "bench": bench_timings,
+        "resources": resources,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

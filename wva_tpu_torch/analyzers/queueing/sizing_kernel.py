@@ -5,23 +5,32 @@ Counterpart of ``wva_tpu/analyzers/queueing/pallas_kernel.py``
 candidate, bisect the arrival rate whose predicted TTFT (lane 0) and ITL
 (lane 1) meet their targets: 48 iterations over the precomputed cumulative
 chain ``clm[n] = sum log mu(i)``
-(:func:`wva_tpu_torch.analyzers.queueing.queue_model._cum_log_mu`).
+(:func:`wva_tpu_torch.analyzers.queueing.queue_model._cum_log_mu`), masked
+past each candidate's occupancy bound k.
 
 - :func:`sizing_bisection` is what the sizing path calls. On CUDA tensors
-  it launches ``csrc/sizing_bisection.cu`` (built by :mod:`._build`) and
-  adds one to :data:`launches`; a build or launch failure raises. On CPU
-  tensors it runs :func:`sizing_bisection_plain`.
+  :func:`launch` runs ``csrc/sizing_bisection.cu`` (built by :mod:`._build`)
+  once, adding one to :data:`launches`; a build or launch failure raises.
+  The kernel derives each row's coefficients from the candidate's fields
+  itself, so the call's only other device work is the row order of a batch
+  of more than one wave (:func:`launch_order`). On CPU tensors it runs
+  :func:`sizing_bisection_plain`.
 - :func:`sizing_bisection_plain` is the same arithmetic in PyTorch over
   ``[2, C, K]`` tensors: the CPU path, and the kernel's oracle on the card.
+- :func:`launch_shape` is the kernel's launch geometry and :func:`work` the
+  work a call must do, from which :meth:`Work.bound` gives the least time
+  an H100 could take for it.
 
-Both take the eight per-candidate coefficient rows that the Pallas wrapper
-prepares (:func:`coefficients`), so the kernel and its plain version differ
-only in the order of their reductions.
+Both versions use the eight per-candidate coefficient rows that the Pallas
+wrapper prepares (:func:`coefficients`), rounded alike. They differ in the
+order of their reductions, and the kernel rounds ``n*log(mid) - clm`` and
+the weighted sums as fused multiply-adds.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,15 +41,91 @@ from wva_tpu_torch.analyzers.queueing.queue_model import (
     _token_factors,
 )
 
-# Kernel launches made by :func:`sizing_bisection` since the last reset.
-# Callers that want to show a run went through the kernel set it to 0
-# before the run and read it after.
+# Kernel launches made by :func:`launch` since the last reset. Callers that
+# want to show a run went through the kernel set it to 0 before the run and
+# read it after.
 launches = 0
 
-# The kernel's state axis: one 256-thread block per candidate, each thread
-# holding up to 8 chain values in registers (k_cols <= 2048).
-_THREADS = 256
-_MAX_VALUES_PER_THREAD = 8
+# The kernel's launch: one warp per candidate row, lane l holding the chain
+# values l + 32*i for i < NV, NV the smallest of _VALUES_PER_LANE covering
+# k_cols; several rows (warps) per block.
+_WARP = 32
+_VALUES_PER_LANE = (8, 16, 32, 64)
+K_COLS_MAX = _WARP * _VALUES_PER_LANE[-1]
+# Rows per block on the sizing path: the fastest of those chip_smoke.py
+# times (PERF.md). The kernel takes 1 to 8.
+ROWS_PER_BLOCK = 8
+_MAX_ROWS_PER_BLOCK = 8
+
+
+class LaunchShape(NamedTuple):
+    values_per_lane: int  # NV: chain values each lane holds in registers
+    blocks: int
+    threads: int  # per block: 32 x rows per block
+
+
+def launch_shape(c: int, k_cols: int,
+                 rows_per_block: int = ROWS_PER_BLOCK) -> LaunchShape:
+    """The kernel's launch geometry for ``c`` rows of ``k_cols`` states;
+    raises ValueError for a shape the kernel does not take."""
+    if k_cols % _WARP or not 0 < k_cols <= K_COLS_MAX:
+        raise ValueError(f"k_cols={k_cols} must be a multiple of {_WARP} and "
+                         f"at most {K_COLS_MAX}")
+    if not 1 <= rows_per_block <= _MAX_ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block={rows_per_block} must be 1 to "
+                         f"{_MAX_ROWS_PER_BLOCK}")
+    nv = next(n for n in _VALUES_PER_LANE if _WARP * n >= k_cols)
+    return LaunchShape(nv, -(-c // rows_per_block), _WARP * rows_per_block)
+
+
+# Published H100 SXM rates: HBM bandwidth and float32 outside the tensor
+# cores (NVIDIA data sheet), and exps on the special-function units, 16 per
+# SM per clock (CUDA C++ Programming Guide, throughput of exp2 at compute
+# capability 9.0) on 132 SMs at the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SFU_EXPS_PER_S = 132 * 16 * 1.98e9
+# Float32 operations per chain state per lane per bisection iteration:
+# n*log(lam) - clm (2), the -1e30 clamp (1), the running max (1),
+# logp - m (1), exp (1), sum w (1), sum n*w (2), sum min(n, B)*w (2).
+OPS_PER_STATE_PASS = 11
+_PASSES = 2 * _BISECTION_ITERS  # two lanes per iteration
+# Per-row 4-byte values besides the chain: 8 candidate fields (clm_at_k,
+# alpha, beta, gamma, the token averages, max_batch, k), and targets, lo0,
+# hi0 and the output, two each.
+_ROW_FLOATS = 8 + 2 + 2 + 2 + 2
+
+
+class Work(NamedTuple):
+    """What one bisection call must do, counted from its inputs."""
+
+    states: int  # chain states the rows need: sum of min(k, k_cols)
+    exps: int
+    fp32_ops: int
+    bytes: int  # each input read once, the output written once
+
+    def bound_terms_ms(self) -> dict[str, float]:
+        """Least time on an H100 for each resource alone, in ms."""
+        return {"bytes": 1e3 * self.bytes / HBM_BYTES_PER_S,
+                "fp32": 1e3 * self.fp32_ops / FP32_OPS_PER_S,
+                "sfu": 1e3 * self.exps / SFU_EXPS_PER_S}
+
+    def bound(self) -> tuple[float, str]:
+        """(ms, term): the largest of :meth:`bound_terms_ms`, and its name."""
+        terms = self.bound_terms_ms()
+        term = max(terms, key=terms.get)
+        return terms[term], term
+
+
+def work(cand: CandidateBatch, k_cols: int) -> Work:
+    """The work of one bisection call over ``cand`` at ``k_cols`` states:
+    every state a row needs (up to its k, at most ``k_cols``) is read once
+    and evaluated in 96 passes, one exp each."""
+    states = int(torch.clamp(cand.k, max=k_cols).sum())
+    c = int(cand.k.shape[0])
+    return Work(states=states, exps=_PASSES * states,
+                fp32_ops=_PASSES * OPS_PER_STATE_PASS * states,
+                bytes=4 * (states + c * _ROW_FLOATS))
 
 
 def coefficients(clm_at_k: torch.Tensor, cand: CandidateBatch) -> torch.Tensor:
@@ -117,12 +202,12 @@ def sizing_bisection_plain(
     return 0.5 * (lo + hi)
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple[int, ...],
-           device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
+           shape: tuple[int, ...], device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -142,35 +227,110 @@ def sizing_bisection(
     the whole batch); CPU tensors run :func:`sizing_bisection_plain`."""
     if not clm.is_cuda:
         return sizing_bisection_plain(clm, clm_at_k, cand, targets, lo0, hi0)
+    c, k_cols = clm.shape
+    out = torch.empty((2, c), dtype=torch.float32, device=clm.device)
+    wave = rows_per_wave(clm.device, launch_shape(c, k_cols).values_per_lane)
+    return launch(clm, clm_at_k, cand, targets, lo0, hi0, out,
+                  order=launch_order(cand.k, k_cols, wave))
+
+
+def launch_order(k: torch.Tensor, k_cols: int,
+                 rows_per_wave: int) -> torch.Tensor | None:
+    """The order in which the kernel's warps should take rows:
+    :func:`rows_by_k` for a batch whose chain holds more states than one
+    wave of rows at the widest ``k_cols`` (``C * k_cols > rows_per_wave *
+    K_COLS_MAX``), else None (rows in place). Rows of unequal k load SMs
+    unevenly, the more so the more waves and the wider the rows, while the
+    sort costs the same. chip_smoke.py's order sweep times both sides of
+    this rule at k_cols 512, 1024 and 2048 (PERF.md)."""
+    if k.shape[0] * k_cols <= rows_per_wave * K_COLS_MAX:
+        return None
+    return rows_by_k(k)
+
+
+def rows_by_k(k: torch.Tensor) -> torch.Tensor:
+    """The rows by decreasing ``k`` in steps of 16 states (int64). The key
+    fits in a byte (k <= 2048), so the sort is one radix pass. The order
+    moves no row's bits."""
+    return torch.argsort((k >> 4).to(torch.uint8), descending=True)
+
+
+_waves: dict[tuple[int, int, int], int] = {}
+
+
+def rows_per_wave(device: torch.device, values_per_lane: int,
+                  rows_per_block: int = ROWS_PER_BLOCK) -> int:
+    """The rows the card of ``device`` runs at once in the instantiation
+    that holds ``values_per_lane`` chain values a lane: resident blocks per
+    SM at its registers, times rows per block, times SMs (asked of the CUDA
+    runtime once, then cached)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, values_per_lane, rows_per_block)
+    if key not in _waves:
+        from wva_tpu_torch.analyzers.queueing import _build
+
+        lib = _build.load()
+        with torch.cuda.device(index):
+            n = lib.sizing_bisection_rows_per_wave(values_per_lane,
+                                                   rows_per_block)
+        if n <= 0:
+            raise RuntimeError(f"sizing_bisection occupancy query failed: "
+                               f"{_build.error_string(-n)} (cudaError {-n})")
+        _waves[key] = n
+    return _waves[key]
+
+
+def launch(clm: torch.Tensor, clm_at_k: torch.Tensor, cand: CandidateBatch,
+           targets: torch.Tensor, lo0: torch.Tensor, hi0: torch.Tensor,
+           out: torch.Tensor, *, order: torch.Tensor | None = None,
+           rows_per_block: int = ROWS_PER_BLOCK,
+           skip_past_k: bool = True) -> torch.Tensor:
+    """Run the kernel once on CUDA tensors: lam_star written to ``out``
+    ``[2, C]``, which is returned. ``order`` (int64 ``[C]``, a permutation
+    of the rows) is the order in which warps take rows. Every ``order``,
+    every ``rows_per_block`` and ``skip_past_k=False`` (compute the states
+    past each row's k too) give the same bits; the last two exist so that
+    chip_smoke.py can time and check them."""
     if clm.dim() != 2:
         raise ValueError(f"clm must be [C, K], got shape {tuple(clm.shape)}")
+    if not clm.is_cuda:
+        raise ValueError(f"the kernel needs CUDA tensors; clm is on "
+                         f"{clm.device}")
     c, k_cols = clm.shape
-    if k_cols % _THREADS or not 0 < k_cols <= _THREADS * _MAX_VALUES_PER_THREAD:
-        raise ValueError(
-            f"k_cols={k_cols} must be a multiple of {_THREADS} and at most "
-            f"{_THREADS * _MAX_VALUES_PER_THREAD}")
-    coef = coefficients(clm_at_k, cand).contiguous()
-    out = torch.empty((2, c), dtype=torch.float32, device=clm.device)
-    for name, t, shape in (("clm", clm, (c, k_cols)), ("coef", coef, (8, c)),
-                           ("targets", targets, (2, c)), ("lo0", lo0, (2, c)),
-                           ("hi0", hi0, (2, c))):
-        _check(name, t, shape, clm.device)
+    shape = launch_shape(c, k_cols, rows_per_block)
+    f32, i32, dev = torch.float32, torch.int32, clm.device
+    arrays = (("clm", clm, f32, (c, k_cols)), ("clm_at_k", clm_at_k, f32, (c,)),
+              ("alpha", cand.alpha, f32, (c,)), ("beta", cand.beta, f32, (c,)),
+              ("gamma", cand.gamma, f32, (c,)),
+              ("avg_input_tokens", cand.avg_input_tokens, f32, (c,)),
+              ("avg_output_tokens", cand.avg_output_tokens, f32, (c,)),
+              ("max_batch", cand.max_batch, i32, (c,)),
+              ("k", cand.k, i32, (c,)), ("targets", targets, f32, (2, c)),
+              ("lo0", lo0, f32, (2, c)), ("hi0", hi0, f32, (2, c)),
+              ("order", order, torch.int64, (c,)), ("out", out, f32, (2, c)))
+    ptrs = []
+    for name, t, dtype, want in arrays:
+        if t is None:
+            ptrs.append(ctypes.c_void_p(None))
+            continue
+        _check(name, t, dtype, want, dev)
+        ptrs.append(ctypes.c_void_p(t.data_ptr()))
     if c == 0:
         return out
 
     from wva_tpu_torch.analyzers.queueing import _build
 
     lib = _build.load()
-    with torch.cuda.device(clm.device):
-        stream = torch.cuda.current_stream(clm.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         global launches
         launches += 1
         err = lib.sizing_bisection_launch(
-            ctypes.c_void_p(clm.data_ptr()), ctypes.c_void_p(coef.data_ptr()),
-            ctypes.c_void_p(targets.data_ptr()), ctypes.c_void_p(lo0.data_ptr()),
-            ctypes.c_void_p(hi0.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int(c), ctypes.c_int(k_cols),
-            ctypes.c_int(_BISECTION_ITERS), ctypes.c_void_p(stream))
+            *ptrs, ctypes.c_int(c), ctypes.c_int(k_cols),
+            ctypes.c_int(_BISECTION_ITERS),
+            ctypes.c_int(shape.values_per_lane), ctypes.c_int(rows_per_block),
+            ctypes.c_int(int(skip_past_k)), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sizing_bisection kernel launch failed: "
                            f"{_build.error_string(err)} (cudaError {err})")
