@@ -8,6 +8,9 @@
   package originals with the package name repointed.
 - Entry points given ``device=None`` raise where there is no CUDA device,
   and ``chip_smoke.py`` fails without a card or without the repo.
+
+The subprocess also runs one CPU ``run_fused_pass``, with forecasting on,
+on the local route and on the fleet solve.
 """
 
 import ast
@@ -80,6 +83,18 @@ inp = AnalyzerInput(
     optimizer_metrics=OptimizerMetrics(arrival_rate=60000.0), slo_config=cfg)
 (d,) = run_slo_pass(an, CostAwareOptimizer(), [inp])
 assert d.action == "scale-up" and d.target_replicas > 1, d
+
+from wva_tpu_torch.engines.slo_pass import FleetRoute, run_fused_pass
+from wva_tpu_torch.forecast.planner import CapacityPlanner
+
+planner = CapacityPlanner(device="cpu")
+for t in range(8):
+    planner.observe_demand("ns", "m", float(t), 1000.0)
+(f,) = run_fused_pass(an, CostAwareOptimizer(), [inp], planner)
+assert (f.action, f.target_replicas) == (d.action, d.target_replicas), f
+inp.config.optimizer_name = "global"
+(g,) = run_fused_pass(an, CostAwareOptimizer(), [inp], planner, FleetRoute())
+assert g.action == "scale-up" and g.target_replicas > 1, g
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "wva_tpu")]
 assert not bad, bad
@@ -127,7 +142,61 @@ VERBATIM_COPIES = [
     "interfaces/replica_metrics.py",
     "interfaces/saturation_config.py",
     "pipeline/optimizer.py",
+    "utils/dispatch.py",
+    "collector/source/promql.py",
+    "forecast/history.py",
+    "forecast/leadtime.py",
+    "forecast/apply.py",
+    "forecast/__init__.py",
+    "fleet/system.py",
+    "fused/__init__.py",
 ]
+
+# Copies that differ from their originals only where the port's device
+# reaches the sizing and the fits: the planner and the fleet solve take a
+# ``device`` (None: the CUDA card) and hand it on. Each pair is (the
+# original's text, the port's), and each original text occurs once.
+DEVICE_COPIES = {
+    "forecast/planner.py": [
+        ("                 batched: bool = True) -> None:\n",
+         "                 batched: bool = True, device=None) -> None:\n"),
+        ("        self.batched = batched\n",
+         "        self.batched = batched\n"
+         "        # Where the fits run: None is the CUDA card, \"cpu\" the plain\n"
+         "        # version.\n"
+         "        self.device = device\n"),
+        ("                fits = (fc.fit_batch(grids) if self.batched\n"
+         "                        else fc.fit_serial(grids))\n",
+         "                fits = (fc.fit_batch(grids, self.device) if self.batched\n"
+         "                        else fc.fit_serial(grids, self.device))\n"),
+        ("            fits = (fc.fit_batch([g for g in grids]) if self.batched\n"
+         "                    else fc.fit_serial([g for g in grids]))\n",
+         "            fits = (fc.fit_batch([g for g in grids], self.device)\n"
+         "                    if self.batched\n"
+         "                    else fc.fit_serial([g for g in grids], self.device))\n"),
+        ("        fit = fc.fit_batch([self._grids_for(key, now, lead)])[0]\n",
+         "        fit = fc.fit_batch([self._grids_for(key, now, lead)],\n"
+         "                           self.device)[0]\n"),
+    ],
+    "fleet/solver.py": [
+        ("          presized: dict | None = None) -> Solution:\n",
+         "          presized: dict | None = None, device=None) -> Solution:\n"),
+        ("    fleet solve re-dispatches nothing.\"\"\"\n",
+         "    fleet solve re-dispatches nothing. ``device`` is where the\n"
+         "    candidates are sized (None: the CUDA card).\"\"\"\n"),
+        ("    candidates = build_candidates(system, presized=presized)\n",
+         "    candidates = build_candidates(system, presized=presized,\n"
+         "                                  device=device)\n"),
+    ],
+    "fleet/__init__.py": [
+        ("def analyze_model(system: FleetSystem, server_name: str) -> "
+         "list[FleetAllocation]:\n",
+         "def analyze_model(system: FleetSystem, server_name: str,\n"
+         "                  device=None) -> list[FleetAllocation]:\n"),
+        ("    return build_candidates(sub).get(server_name, [])\n",
+         "    return build_candidates(sub, device=device).get(server_name, [])\n"),
+    ],
+}
 
 
 @pytest.mark.parametrize("rel", VERBATIM_COPIES)
@@ -135,6 +204,16 @@ def test_copies_match_reference(rel):
     ref = (ROOT / "wva_tpu" / rel).read_text()
     assert (PORT / rel).read_text() == re.sub(r"\bwva_tpu\b", "wva_tpu_torch",
                                               ref)
+
+
+@pytest.mark.parametrize("rel", sorted(DEVICE_COPIES))
+def test_device_copies_differ_only_in_the_device(rel):
+    want = re.sub(r"\bwva_tpu\b", "wva_tpu_torch",
+                  (ROOT / "wva_tpu" / rel).read_text())
+    for original, port in DEVICE_COPIES[rel]:
+        assert want.count(original) == 1, original
+        want = want.replace(original, port)
+    assert (PORT / rel).read_text() == want
 
 
 _LAZY_YAML = (
@@ -178,6 +257,36 @@ def test_device_none_raises_without_cuda():
                                       alpha=5.0, beta=0.01, gamma=0.001)),
                       RequestSize(avg_input_tokens=100, avg_output_tokens=50))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fused_fleet_and_fits_need_a_card_without_device():
+    _no_cuda()
+    from wva_tpu_torch import fused
+    from wva_tpu_torch.fleet import FleetSystem, build_candidates, solve
+    from wva_tpu_torch.forecast import forecasters as fc
+    from wva_tpu_torch.forecast.planner import CapacityPlanner
+
+    msg = "CUDA device required"
+    with pytest.raises(RuntimeError, match=msg):
+        build_candidates(FleetSystem())
+    with pytest.raises(RuntimeError, match=msg):
+        solve(FleetSystem())
+    grids = fused.FleetGrids()
+    with pytest.raises(RuntimeError, match=msg):
+        fused.build_candidate_axis(grids, {"m|ns": type(
+            "Plan", (), {"candidates": [object()]})()}, ["m|ns"])
+    with pytest.raises(RuntimeError, match=msg):
+        fused.build_model_axis(grids, [], [], [], [], [], [], [])
+    g = fc.SeriesGrids(fine=[1.0] * fc.N_GRID, fine_valid=fc.N_GRID,
+                       long=[1.0] * fc.N_GRID, long_valid=fc.N_GRID,
+                       h_fine_steps=1.0, h_long_steps=0.1, season_steps=64)
+    with pytest.raises(RuntimeError, match=msg):
+        fc.fit_batch([g])
+    with pytest.raises(RuntimeError, match=msg):
+        fc.fit_serial([g])
+    with pytest.raises(RuntimeError, match=msg):
+        CapacityPlanner().plan([], 0.0)
+    assert fc.fit_batch([g], "cpu")[0]["linear"] == 1.0
 
 
 def _run_smoke(cwd):

@@ -5,10 +5,12 @@ package so a reader can find it there. The port imports ``torch`` and
 ``numpy`` and never ``jax`` or the JAX package; host-only modules it needs
 are kept as checked-in copies.
 
-Covered so far: the SLO sizing pass (``engines.slo_pass.run_slo_pass``):
-``QueueingModelAnalyzer.prepare`` per model, one batched sizing call over
-the fleet's candidates (the hand-written CUDA sizing-bisection kernel on
-the card), ``finalize`` per model and the ``CostAwareOptimizer``.
+Covered so far: the SLO engine tick (``engines.slo_pass``), staged
+(``run_slo_pass``) and fused (``run_fused_pass``): ``prepare`` per model,
+the forecast planner's learning pass, one fused program on the card (the
+hand-written CUDA sizing-bisection and forecaster-fit kernels, one host
+transfer), ``finalize`` per model, the fleet solve for global-routed models,
+the ``CostAwareOptimizer`` for the rest, and the forecast floors.
 """
 
 from wva_tpu_torch.device import resolve_device

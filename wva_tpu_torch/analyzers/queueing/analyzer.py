@@ -473,6 +473,9 @@ class QueueingModelAnalyzer(Analyzer):
         of shapes. ``size_batch_bucketed`` also trims the state axis to the
         fleet's largest occupancy bound — the ``k_host`` ints are already in
         hand, so no device sync is paid for the trim decision."""
+        from wva_tpu_torch.utils import dispatch
+
+        dispatch.note()
         n = len(candidates)
         cand, t_ttft, t_itl, t_tps, ks = build_sizing_batch(
             candidates, self.device)

@@ -270,13 +270,14 @@ def rows_per_wave(device: torch.device, values_per_lane: int,
     if key not in _waves:
         from wva_tpu_torch.analyzers.queueing import _build
 
-        lib = _build.load()
+        lib = _build.LIBRARY.load()
         with torch.cuda.device(index):
             n = lib.sizing_bisection_rows_per_wave(values_per_lane,
                                                    rows_per_block)
         if n <= 0:
-            raise RuntimeError(f"sizing_bisection occupancy query failed: "
-                               f"{_build.error_string(-n)} (cudaError {-n})")
+            raise RuntimeError(
+                f"sizing_bisection occupancy query failed: "
+                f"{_build.LIBRARY.error_string(-n)} (cudaError {-n})")
         _waves[key] = n
     return _waves[key]
 
@@ -321,7 +322,7 @@ def launch(clm: torch.Tensor, clm_at_k: torch.Tensor, cand: CandidateBatch,
 
     from wva_tpu_torch.analyzers.queueing import _build
 
-    lib = _build.load()
+    lib = _build.LIBRARY.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         global launches
@@ -332,6 +333,7 @@ def launch(clm: torch.Tensor, clm_at_k: torch.Tensor, cand: CandidateBatch,
             ctypes.c_int(shape.values_per_lane), ctypes.c_int(rows_per_block),
             ctypes.c_int(int(skip_past_k)), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"sizing_bisection kernel launch failed: "
-                           f"{_build.error_string(err)} (cudaError {err})")
+        raise RuntimeError(
+            f"sizing_bisection kernel launch failed: "
+            f"{_build.LIBRARY.error_string(err)} (cudaError {err})")
     return out

@@ -1,1 +1,2 @@
-"""Data-acquisition layer: only the SLO arrival-rate window settings so far."""
+"""Data-acquisition layer: the SLO arrival-rate window settings, and the
+series window the forecast history hands out (``source.promql``)."""
