@@ -177,7 +177,7 @@ PORT_MODULES = [
     "fleet/allocation.py",
     "forecast/fit_kernel.py", "forecast/forecasters.py",
     "fused/grids.py", "fused/program.py",
-    "sweep/world.py",
+    "sweep/scan_kernel.py", "sweep/world.py",
 ]
 
 # Copies that differ from their originals only where the port's device

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from wva_tpu_torch import cuda_build
 from wva_tpu_torch.analyzers.queueing.queue_model import (
     _BISECTION_ITERS,
     _NEG_INF,
@@ -78,13 +79,12 @@ def launch_shape(c: int, k_cols: int,
     return LaunchShape(nv, -(-c // rows_per_block), _WARP * rows_per_block)
 
 
-# Published H100 SXM rates: HBM bandwidth and float32 outside the tensor
+# Published H100 SXM rates besides cuda_build's: float32 outside the tensor
 # cores (NVIDIA data sheet), and exps on the special-function units, 16 per
 # SM per clock (CUDA C++ Programming Guide, throughput of exp2 at compute
-# capability 9.0) on 132 SMs at the 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
+# capability 9.0) on 132 SMs at the boost clock.
 FP32_OPS_PER_S = 67e12
-SFU_EXPS_PER_S = 132 * 16 * 1.98e9
+SFU_EXPS_PER_S = 132 * 16 * cuda_build.CLOCK_HZ
 # Float32 operations per chain state per lane per bisection iteration:
 # n*log(lam) - clm (2), the -1e30 clamp (1), the running max (1),
 # logp - m (1), exp (1), sum w (1), sum n*w (2), sum min(n, B)*w (2).
@@ -106,15 +106,13 @@ class Work(NamedTuple):
 
     def bound_terms_ms(self) -> dict[str, float]:
         """Least time on an H100 for each resource alone, in ms."""
-        return {"bytes": 1e3 * self.bytes / HBM_BYTES_PER_S,
+        return {"bytes": 1e3 * self.bytes / cuda_build.HBM_BYTES_PER_S,
                 "fp32": 1e3 * self.fp32_ops / FP32_OPS_PER_S,
                 "sfu": 1e3 * self.exps / SFU_EXPS_PER_S}
 
     def bound(self) -> tuple[float, str]:
         """(ms, term): the largest of :meth:`bound_terms_ms`, and its name."""
-        terms = self.bound_terms_ms()
-        term = max(terms, key=terms.get)
-        return terms[term], term
+        return cuda_build.binding(self.bound_terms_ms())
 
 
 def work(cand: CandidateBatch, k_cols: int) -> Work:
@@ -200,18 +198,6 @@ def sizing_bisection_plain(
         lo = torch.where(go_right, mid, lo)
         hi = torch.where(go_right, hi, mid)
     return 0.5 * (lo + hi)
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           shape: tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def sizing_bisection(
@@ -315,7 +301,7 @@ def launch(clm: torch.Tensor, clm_at_k: torch.Tensor, cand: CandidateBatch,
         if t is None:
             ptrs.append(ctypes.c_void_p(None))
             continue
-        _check(name, t, dtype, want, dev)
+        cuda_build.check_tensor(name, t, dtype, want, dev)
         ptrs.append(ctypes.c_void_p(t.data_ptr()))
     if c == 0:
         return out

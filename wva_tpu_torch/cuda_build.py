@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Sequence
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,6 +97,43 @@ class Library:
     def error_string(self, err: int) -> str:
         return getattr(self.load(),
                        f"{self.source.stem}_error_string")(err).decode()
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple[int, ...], device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's wrapper checks before a launch."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+# Published H100 SXM rates the kernels' bounds use: HBM bandwidth (NVIDIA
+# data sheet) and the boost clock; a dependent float32 add, multiply,
+# select or min/max issues ~4 cycles after the one it waits on.
+HBM_BYTES_PER_S = 3.35e12
+CLOCK_HZ = 1.98e9
+CYCLES_PER_DEPENDENT_OP = 4
+
+
+def chain_bound_terms_ms(nbytes: int, chain_ops: int) -> dict[str, float]:
+    """Least time on an H100 for each alone, in ms: ``nbytes`` at HBM
+    bandwidth, and a serial chain of ``chain_ops`` dependent operations at
+    one per ``CYCLES_PER_DEPENDENT_OP`` cycles (every lane's chain runs at
+    once)."""
+    return {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "chain": 1e3 * chain_ops * CYCLES_PER_DEPENDENT_OP / CLOCK_HZ}
+
+
+def binding(terms: dict[str, float]) -> tuple[float, str]:
+    """(ms, term): the largest of a bound's terms, and its name."""
+    term = max(terms, key=terms.get)
+    return terms[term], term
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

@@ -59,12 +59,6 @@ WEIGHTS = (fc.HOLT_ALPHA, 1 - fc.HOLT_ALPHA, fc.HOLT_BETA, 1 - fc.HOLT_BETA,
            fc.HW_GAMMA, 1 - fc.HW_GAMMA, float(fc.MIN_VALID))
 _WEIGHTS_C = (ctypes.c_float * len(WEIGHTS))(*WEIGHTS)
 
-# Published H100 SXM rates: HBM bandwidth (NVIDIA data sheet) and the boost
-# clock; a dependent float32 add, multiply or select issues ~4 cycles after
-# the one it waits on.
-HBM_BYTES_PER_S = 3.35e12
-CLOCK_HZ = 1.98e9
-CYCLES_PER_DEPENDENT_OP = 4
 # The longest chain of dependent operations in one column of the
 # Holt-Winters lane (csrc/fit_grid.cu): the trend through level + trend,
 # * (1-a), + a*(x-s), - level, * b, + (1-b)*trend. The walk starts at the
@@ -80,19 +74,13 @@ class Work(NamedTuple):
     chain_ops: int  # dependent operations on one row's critical path
 
     def bound_terms_ms(self) -> dict[str, float]:
-        """Least time on an H100 for each alone, in ms: the bytes at HBM
-        bandwidth, and the serial chain at one dependent operation per
-        ``CYCLES_PER_DEPENDENT_OP`` cycles (every row's chain runs at
-        once)."""
-        return {"bytes": 1e3 * self.bytes / HBM_BYTES_PER_S,
-                "chain": 1e3 * self.chain_ops * CYCLES_PER_DEPENDENT_OP
-                / CLOCK_HZ}
+        """The bytes and chain terms (:func:`cuda_build.chain_bound_terms_ms`),
+        in ms."""
+        return cuda_build.chain_bound_terms_ms(self.bytes, self.chain_ops)
 
     def bound(self) -> tuple[float, str]:
         """(ms, term): the larger of :meth:`bound_terms_ms`, and its name."""
-        terms = self.bound_terms_ms()
-        term = max(terms, key=terms.get)
-        return terms[term], term
+        return cuda_build.binding(self.bound_terms_ms())
 
 
 def work(rows: int) -> Work:
@@ -114,18 +102,6 @@ def smem_layout() -> dict[str, int]:
             "seasonal_row_floats": lib.fit_grid_smem_ring_stride(),
             **{f"R={r} bytes": lib.fit_grid_smem_bytes(r)
                for r in ROWS_CHOICES}}
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           shape: tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 _NAMES = ("fine", "fine_valid", "long", "long_valid", "h_fine", "h_long",
@@ -162,7 +138,7 @@ def launch(fine: torch.Tensor, fine_valid: torch.Tensor,
         if not (t.dtype is dtype and t.device == dev and t.shape == shape
                 and t.is_contiguous()):
             for name, t2, (dtype2, shape2) in zip(_NAMES, tensors, wants):
-                _check(name, t2, dtype2, shape2, dev)
+                cuda_build.check_tensor(name, t2, dtype2, shape2, dev)
     if m == 0:
         return out
     lib = LIBRARY.load()

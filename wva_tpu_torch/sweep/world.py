@@ -1,7 +1,8 @@
 """The vectorized emulated world: ``[W, M]`` grids of policy worlds,
-each chunk advanced over the horizon by one host-driven loop of PyTorch
-steps on the device (the reference runs one ``jit(lax.scan)`` dispatch
-per chunk).
+each chunk advanced over the whole horizon by one launch of a CUDA kernel
+on the card (``csrc/world_scan.cu``, :mod:`wva_tpu_torch.sweep.scan_kernel`),
+as the reference runs one ``jit(lax.scan)`` dispatch per chunk; on the CPU
+by its plain version, a loop of PyTorch steps.
 
 Physics, re-expressed fluidly from the event-driven twin:
 
@@ -33,7 +34,8 @@ Everything is fixed-shape and branch-free (masks, never Python branches
 on tensor values), so per-world results are **bitwise independent of the
 batch width** — world ``w`` computes the identical float32 lane whether
 it rides in a chunk of 1 or 256 (asserted by
-``tests/test_torch_sweep.py``, and on the card by ``chip_smoke.py``). All randomness (Poisson arrivals, fault
+``tests/test_torch_sweep.py``, and on the card by
+``tests/test_torch_sweep_kernel.py`` and ``chip_smoke.py``). All randomness (Poisson arrivals, fault
 windows) is precomputed on the host from per-world seeds
 (``numpy.random.Philox`` / :mod:`wva_tpu_torch.utils.seeds`), keyed by the
 world seed alone — never by batch position.
@@ -53,6 +55,7 @@ import torch
 
 from wva_tpu_torch.device import resolve_device
 from wva_tpu_torch.sweep import knobs as kb
+from wva_tpu_torch.sweep import scan_kernel
 from wva_tpu_torch.utils import dispatch, seeds
 
 _EPS = 1e-6
@@ -102,16 +105,25 @@ class WorldParams:
 # -- the shared latency law (scalar, used by both the python reference
 # -- and, through tensor broadcasting, the device program) ---------------
 
-def iteration_ms(p: WorldParams, n, xp=math):  # noqa: ARG001 — xp unused
+def _iteration_slope(p: WorldParams) -> float:
+    """ms an iteration per request in the batch, ``beta*tc + gamma*tm``."""
     tc = (p.avg_input_tokens + p.avg_output_tokens) \
         / (p.avg_output_tokens + 1.0)
     tm = p.avg_input_tokens + p.avg_output_tokens / 2.0
-    return p.alpha_ms + n * (p.beta_ms * tc + p.gamma_ms * tm)
+    return p.beta_ms * tc + p.gamma_ms * tm
+
+
+def _prefill_extra(p: WorldParams) -> float:
+    """Prefill's ms beyond one iteration, ``(beta+gamma) * in_tokens``."""
+    return (p.beta_ms + p.gamma_ms) * p.avg_input_tokens
+
+
+def iteration_ms(p: WorldParams, n, xp=math):  # noqa: ARG001 — xp unused
+    return p.alpha_ms + n * _iteration_slope(p)
 
 
 def prefill_ms(p: WorldParams, n):
-    return iteration_ms(p, n) + (p.beta_ms + p.gamma_ms) \
-        * p.avg_input_tokens
+    return iteration_ms(p, n) + _prefill_extra(p)
 
 
 def replica_rps(p: WorldParams, n):
@@ -193,23 +205,77 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _run_chunk(params: WorldParams, knob_rows, lam_t, arrivals, faults,
-               init_replicas: float):
+def _stab_steps(p: WorldParams) -> int:
+    return max(int(round(p.down_stabilization_s / p.dt)), 1)
+
+
+def scan_constants(params: WorldParams, init_replicas: float) -> dict:
+    """The scan kernel's constants (``scan_kernel.CONSTANT_NAMES``): each
+    the Python value :func:`run_chunk_plain` hands a PyTorch op, which
+    rounds it to float32 once, as the kernel's wrapper does."""
+    p = params
+    return dict(
+        eps=_EPS, dt=p.dt, ms=1000.0, max_batch=float(p.max_batch),
+        max_replicas=float(p.max_replicas), steps=float(p.steps),
+        lead=float(p.lead_steps), iter_slope=_iteration_slope(p),
+        alpha=p.alpha_ms, prefill_extra=_prefill_extra(p),
+        out_tokens=p.avg_output_tokens,
+        rate_full=replica_rps(p, float(p.max_batch)),
+        slo_ttft=p.slo_ttft_s, queue_bound=float(p.queue_bound),
+        startup=p.startup_s, stab_steps=float(_stab_steps(p)),
+        chips_per_replica=float(p.chips_per_replica),
+        init_replicas=float(init_replicas), err_gain=0.2, two=2.0)
+
+
+def chunk_tensors(rows: np.ndarray, lam: np.ndarray, arrivals: np.ndarray,
+                  faults: np.ndarray, device) -> tuple:
+    """One chunk's inputs on ``device`` in :func:`run_chunk`'s layout, from
+    the host's knob rows ``[W, K]``, rates ``[M, T]`` and arrival and fault
+    tables ``[W, M, T]``: ``(knob_rows [W, K], lam_t [T, M], arrivals [T, W,
+    M], faults [T, W, M])``, float32 and contiguous."""
+    def to_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.float32)).to(device)
+
+    return (to_dev(rows), to_dev(np.asarray(lam, dtype=np.float32).T),
+            to_dev(np.asarray(arrivals).transpose(2, 0, 1)),
+            to_dev(np.asarray(faults).transpose(2, 0, 1)))
+
+
+def run_chunk(params: WorldParams, knob_rows, lam_t, arrivals, faults,
+              init_replicas: float):
     """Advance one chunk of worlds over the whole horizon on the device of
-    ``knob_rows``: ``knob_rows [W, K]``, ``lam_t [T, M]``, ``arrivals`` and
-    ``faults [T, W, M]``, all float32 on one device. The counterpart of the
-    reference's ``jit(lax.scan)``: the same step, in the same order of
-    float32 operations, looped over T on the host. Quantities the step
-    reads but never changes (the knob columns' derived operating points)
-    are computed once before the loop; the loop makes no host sync.
-    Returns ``(attainment, chip_seconds, wrong_direction, total)``, each
-    ``[W, M]`` on the device."""
+    ``knob_rows`` (inputs as :func:`run_chunk_plain` takes them): on a CUDA
+    device one launch of the scan kernel, which computes the plain
+    version's bits; on the CPU the plain version. Returns
+    ``(attainment, chip_seconds, wrong_direction, total)``, each ``[W, M]``
+    on that device."""
+    if knob_rows.device.type == "cpu":
+        return run_chunk_plain(params, knob_rows, lam_t, arrivals, faults,
+                               init_replicas)
+    out = scan_kernel.launch(knob_rows, lam_t, arrivals, faults,
+                             scan_constants(params, init_replicas),
+                             lead=params.lead_steps)
+    return tuple(out)
+
+
+def run_chunk_plain(params: WorldParams, knob_rows, lam_t, arrivals, faults,
+                    init_replicas: float):
+    """The scan kernel's plain version: one chunk of worlds over the whole
+    horizon on the device of ``knob_rows``: ``knob_rows [W, K]``, ``lam_t
+    [T, M]``, ``arrivals`` and ``faults [T, W, M]``, all float32 on one
+    device. The counterpart of the reference's ``jit(lax.scan)``: the same
+    step, in the same order of float32 operations, looped over T on the
+    host. Quantities the step reads but never changes (the knob columns'
+    derived operating points) are computed once before the loop; the loop
+    makes no host sync. Returns ``(attainment, chip_seconds,
+    wrong_direction, total)``, each ``[W, M]`` on the device."""
     p = params
     T, L = p.steps, p.lead_steps
     dev = knob_rows.device
     w, m = int(knob_rows.shape[0]), int(lam_t.shape[1])
     rate_full = replica_rps(p, float(p.max_batch))
-    stab_steps = max(int(round(p.down_stabilization_s / p.dt)), 1)
+    stab_steps = _stab_steps(p)
     c = _Consts(dev, eps=_EPS, zero=0.0, one=1.0, dt=p.dt, two=2.0,
                 ms=1000.0, lead=float(L), max_batch=float(p.max_batch),
                 max_replicas=float(p.max_replicas), steps=float(T))
@@ -346,9 +412,9 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
     """Advance ``len(knob_list) == len(world_seeds)`` worlds through the
     whole horizon on ``device`` (None: the CUDA card). Each chunk's knob
     rows and its ``[T, W, M]`` arrival and fault tables go to the device
-    once; the horizon's T steps run there with no host sync, and the
-    dispatch counter is noted once per chunk, as the reference notes its
-    one program per chunk.
+    once; the horizon's T steps run there in one launch of the scan kernel
+    (on the CPU, its plain version), and the dispatch counter is noted once
+    per chunk, as the reference notes its one program per chunk.
 
     Returns per-world arrays: ``attainment [W, M]``,
     ``chip_seconds [W, M]``, ``wrong_direction [W, M]``,
@@ -368,21 +434,14 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
                       dtype=np.float32)
     degenerate = np.asarray([kb.is_degenerate(k) for k in knob_list])
 
-    def to_dev(x):
-        return torch.from_numpy(np.ascontiguousarray(
-            x, dtype=np.float32)).to(dev)
-
-    lam_t = to_dev(np.asarray(lam, dtype=np.float32).T)
     outs = {"attainment": [], "chip_seconds": [], "wrong_direction": [],
             "arrivals_total": []}
     for lo in range(0, w_total, max(chunk, 1)):
         hi = min(lo + max(chunk, 1), w_total)
-        parts = _run_chunk(
-            params, to_dev(rows[lo:hi]), lam_t,
-            to_dev(np.asarray(arrivals[lo:hi]).transpose(2, 0, 1)),
-            to_dev(np.asarray(faults[lo:hi]).transpose(2, 0, 1)),
+        parts = run_chunk(params, *chunk_tensors(
+            rows[lo:hi], lam, arrivals[lo:hi], faults[lo:hi], dev),
             float(init_replicas))
-        dispatch.note()  # one program per chunk x whole horizon
+        dispatch.note()  # one kernel launch per chunk x whole horizon
         host = torch.stack(parts).cpu().numpy()  # the one host transfer
         for key, part in zip(outs, host):
             outs[key].append(part)
