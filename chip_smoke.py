@@ -15,7 +15,8 @@ Phases (any failure raises and the script exits non-zero):
    sizing instantiation's registers, spills and shared memory (it fails on
    a spill), the SASS instructions per 32-state chunk, the fit and scan
    kernels' registers, spills and local memory a thread, the scan kernel's
-   SASS instructions, and the card's name and power limit.
+   threads and shared memory a block and its SASS instructions, and the
+   card's name and power limit.
 2. Hold the kernel against its plain PyTorch version on the card: seeded
    populations at C in {1, 77, 1024, 8192} and k_cols in {256, 512, 1024,
    2048} (every NV instantiation) at rtol 2e-3, disabled targets at 1e-5
@@ -98,7 +99,13 @@ Phases (any failure raises and the script exits non-zero):
    equal ``run_chunk_plain`` on the batch's CUDA tensors bit for bit on
    all four outputs, NaN where NaN; the kernel's wrapper (CUDA events) and
    device (profiler) times are printed beside its bound and the plain
-   version's time. 24 worlds run at chunk 3 must equal the same worlds
+   version's time, with the SM clock sampled by nvidia-smi while it runs,
+   the cycles a step that gives, its registers, spills and shared memory,
+   and both times at 256, 4096 and 16384 worlds; probe builds of the
+   kernel time a round in clock cycles with every role at work and with
+   each role alone, and a build that takes stage 2's general path at every
+   lead is held to the plain version's bits and timed against the shipped
+   one. 24 worlds run at chunk 3 must equal the same worlds
    inside a chunk of 256 bit for bit; the batch on the card must agree
    with the same batch on the CPU, and 8 of its worlds with the scalar
    oracle ``run_world_python``, at rel 5e-3, abs 1e-3. Then the fidelity
@@ -132,6 +139,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -239,16 +247,19 @@ def phase_build():
         f"{layout['grid_row_floats']} floats (fine, long), seasonal rows of "
         f"{layout['seasonal_row_floats']} (a doubled ring); {layout}")
     scan_ops = dict(sass_functions(paths[2]))
+    lead = SWEEP_PARAMS.lead_steps
     for scan in cuda_build.resources(scan_kernel.LIBRARY.build_log()):
         ops = next(ops for name, ops in scan_ops.items()
                    if "world_scan_kernel" in name)
+        block = scan_kernel.block(lead)
         log(f"[build] world_scan: {scan['registers']} registers, "
             f"{scan['spill_stores']} B spill stores, {scan['spill_loads']} B "
-            f"spill loads, {scan['stack']} B local memory a thread, a "
-            f"pipeline of L floats a thread in dynamic shared memory; SASS "
+            f"spill loads, {scan['stack']} B local memory a thread; "
+            f"{block['threads']} threads and {block['shared_bytes']} B "
+            f"dynamic shared memory a block at L={lead}; SASS "
             f"{sum(ops.values())} instructions: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
-        resources.append(dict(kernel="world_scan", **scan))
+        resources.append(dict(kernel="world_scan", **scan, **block))
     per_chunk = sass_per_chunk(path)
     log(f"[build] SASS per chunk of 32 states (NV=64 less NV=32, over 32): "
         f"{sum(per_chunk.values()):.2f} instructions: "
@@ -2064,11 +2075,158 @@ def sweep_far(got, want):
     return far
 
 
+def sm_clock_mhz(fn, seconds=1.5):
+    """The card's SM clock, MHz (nvidia-smi), sampled while ``fn`` runs
+    back to back for about ``seconds``: the median and the samples. A
+    failed sample raises here."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True, timeout=60)
+            samples.append(float(out.stdout.split()[0]))
+
+    with ThreadPoolExecutor(1) as pool:
+        sampler = pool.submit(sample)
+        t0 = time.perf_counter()
+        try:
+            while ((time.perf_counter() - t0 < seconds or not samples)
+                   and not sampler.done()):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+        finally:
+            stop.set()
+        sampler.result()
+    require(samples, "no SM clock sample from nvidia-smi")
+    return float(np.median(samples)), samples
+
+
+# The scan kernel's roles by warp, and its tile and round offsets, read
+# from the source (enum Warp, kTile, enum Offset).
+_SCAN_SOURCE = scan_kernel._SOURCE.read_text()
+SCAN_TILE = int(re.search(r"kTile = (\d+);", _SCAN_SOURCE).group(1))
+SCAN_FILL = len(re.search(r"enum Offset \{(.*?)\};", _SCAN_SOURCE,
+                          re.S).group(1).split(",")) - 1
+SCAN_ROLES = ("loader", "stage 1", "error walk", "stage 2", "serving")
+
+
+def _bind_scan_probe(lib):
+    scan_kernel._bind(lib)
+    lib.world_scan_set_probe.argtypes = [ctypes.c_void_p]
+    lib.world_scan_set_probe.restype = None
+
+
+def scan_raw_launch(so, params, inputs):
+    """A launch of ``so``'s world_scan_launch on the chunk's CUDA tensors,
+    past the wrapper (its launches do not count as the wrapper's)."""
+    knob_rows, lam_t, arrivals, faults = inputs
+    (w, k), (t, m) = knob_rows.shape, lam_t.shape
+    out = torch.empty((4, w, m), dtype=torch.float32, device=CUDA)
+    consts = sweep_world.scan_constants(params, 1.0)
+    values = (ctypes.c_float * len(scan_kernel.CONSTANT_NAMES))(
+        *(float(consts[n]) for n in scan_kernel.CONSTANT_NAMES))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go():
+        require(so.world_scan_launch(
+            knob_rows.data_ptr(), lam_t.data_ptr(), arrivals.data_ptr(),
+            faults.data_ptr(), out.data_ptr(), w, m, t, params.lead_steps, k,
+            values, len(values), stream) == 0, "world_scan_launch")
+        return out
+
+    return go
+
+
+# The scan kernel built to take stage 2's general path at every lead.
+SCAN_GENERAL = cuda_build.Library(
+    scan_kernel._SOURCE, scan_kernel._bind,
+    scan_kernel.LIBRARY.flags + ("-DWORLD_SCAN_GENERAL_FOLDS",))
+
+
+def scan_general_folds(params, inputs, want):
+    """Stage 2's long-lead path against its general path at the bench lead
+    (``SCAN_GENERAL``): both bit for bit against ``want``, then timed by
+    CUDA events over 200 launches each, in turns shipped, general, general,
+    shipped."""
+    general = SCAN_GENERAL
+    go = {"shipped": scan_raw_launch(scan_kernel.LIBRARY.load(), params,
+                                     inputs),
+          "general": scan_raw_launch(general.load(), params, inputs)}
+    for name, fn in go.items():
+        got = fn().cpu().numpy()
+        nan = np.isnan(want)
+        require(np.array_equal(np.isnan(got), nan)
+                and not ((got != want) & ~nan).any(),
+                f"the {name} stage 2 differs from run_chunk_plain")
+    ms = {name: [] for name in go}
+    for name in ("shipped", "general", "general", "shipped"):
+        ms[name].append(time_ms(go[name], 200))
+    regs = {name: next(r["registers"] for r in cuda_build.resources(
+        lib.build_log()) if "world_scan_kernel" in r["entry"])
+        for name, lib in (("shipped", scan_kernel.LIBRARY),
+                          ("general", general))}
+    log(f"[sweep] stage 2 at L={params.lead_steps}: the long-lead path "
+        f"(shipped) " + "/".join(f"{x:.5f}" for x in ms["shipped"])
+        + " ms, the general path " + "/".join(f"{x:.5f}" for x in ms["general"])
+        + f" ms a launch (CUDA events, 200 launches, in turns), both bitwise "
+        f"equal to run_chunk_plain; {regs['shipped']} and {regs['general']} "
+        f"registers")
+    return dict(ms=ms, registers=regs)
+
+
+def scan_probe(params, inputs):
+    """Where a round of the scan kernel goes, at the bench chunk: probe
+    builds (-DWORLD_SCAN_PROBE) mark clock64() in block 0 as each barrier
+    releases, with every role at work and with each role alone at work
+    (the others only meet the barriers, on tiles of 1.0). Over the rounds
+    in which every role has a tile: cycles a round. Probe launches go to
+    the libraries directly and do not count as the wrapper's."""
+    probes = {"all roles": -1, **{name: i for i, name in
+                                  enumerate(SCAN_ROLES + ("pool",))}}
+    libs = {name: cuda_build.Library(
+        scan_kernel._SOURCE, _bind_scan_probe,
+        scan_kernel.LIBRARY.flags + (f"-DWORLD_SCAN_PROBE={value}",))
+        for name, value in probes.items()}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs.values()))
+    t = inputs[1].shape[0]
+    rounds = -(-t // SCAN_TILE) + SCAN_FILL
+    steady = range(SCAN_FILL, rounds - SCAN_FILL)
+    cycles, total = {}, None
+    for name, lib in libs.items():
+        so = lib.load()
+        marks = torch.zeros(rounds + 1, dtype=torch.int64, device=CUDA)
+        so.world_scan_set_probe(marks.data_ptr())
+        go = scan_raw_launch(so, params, inputs)
+        for _ in range(2):  # the second launch is read warm
+            go()
+        torch.cuda.synchronize()
+        left = marks.cpu().numpy().astype(np.float64)
+        cycles[name] = float(np.mean([left[r + 1] - left[r]
+                                      for r in steady]))
+        if total is None:
+            total = float(left[-1] - left[0])
+    log(f"[sweep] scan probe (clock64, block 0, the bench chunk): {rounds} "
+        f"rounds of {SCAN_TILE} steps, {total:.0f} cycles from the ring's "
+        f"zeroing to the last barrier ({total / t:.1f} a step); over the "
+        f"{len(steady)} rounds in which every role has a tile, cycles a "
+        f"round: " + ", ".join(
+            f"{n} {c:.0f}" if n == "all roles" else f"{n} alone {c:.0f}"
+            for n, c in cycles.items()))
+    return dict(rounds=rounds, cycles=total, round_cycles=cycles)
+
+
 def scan_kernel_vs_plain(params, points, lam, arr, flt):
     """The scan kernel against ``run_chunk_plain`` on the same CUDA tensors
     of the 256-world batch: every output bit for bit, NaN where NaN; then
     their times (CUDA events, in turns plain, kernel, kernel, plain), the
-    kernel's device time (torch.profiler) and its bound."""
+    kernel's device time (torch.profiler), the SM clock beside it and the
+    cycles a step they give, its bound, its registers and shared memory,
+    and its wrapper and device times at wider chunks."""
     rows = np.asarray([sweep_knobs.to_vector(k) for k in points],
                       dtype=np.float32)
     inputs = sweep_world.chunk_tensors(rows, lam, arr, flt, CUDA)
@@ -2095,18 +2253,34 @@ def scan_kernel_vs_plain(params, points, lam, arr, flt):
     k2 = time_ms(kernel, 200)
     p2 = time_ms(plain, 2)
     device = device_ms(kernel, 200, "world_scan_kernel")
+    clock_mhz, clock_samples = sm_clock_mhz(kernel)
+    cycles = (None if device is None
+              else device * 1e-3 * clock_mhz * 1e6 / params.steps)
     # Wider chunks (the batch's worlds repeated): a lane's steps are serial,
     # so while the lanes fit on the card at once the time should not grow.
-    by_width = {}
+    by_width, device_by_width = {}, {}
     for reps in SCAN_WIDTHS:
         wide = sweep_world.chunk_tensors(
             np.tile(rows, (reps, 1)), lam, np.tile(arr, (reps, 1, 1)),
             np.tile(flt, (reps, 1, 1)), CUDA)
-        by_width[len(points) * reps] = time_ms(
-            lambda wide=wide: sweep_world.run_chunk(params, *wide, 1.0), 50)
+
+        def call(wide=wide):
+            return sweep_world.run_chunk(params, *wide, 1.0)
+
+        by_width[len(points) * reps] = time_ms(call, 50)
+        device_by_width[len(points) * reps] = device_ms(
+            call, 50, "world_scan_kernel")
     work = scan_kernel.work(len(points), lam.shape[0], params.steps)
     bound_ms, term = work.bound()
     terms = work.bound_terms_ms()
+    with ThreadPoolExecutor(1) as pool:
+        general_built = pool.submit(SCAN_GENERAL.build)
+        probe = scan_probe(params, inputs)
+        general_built.result()
+    general_folds = scan_general_folds(params, inputs, want)
+    block = scan_kernel.block(params.lead_steps)
+    build = next(r for r in cuda_build.resources(
+        scan_kernel.LIBRARY.build_log()) if "world_scan_kernel" in r["entry"])
     log(f"[sweep] world_scan at the bench chunk (W={len(points)}, "
         f"M={lam.shape[0]}, T={params.steps}, L={params.lead_steps}): "
         f"equal to run_chunk_plain bit for bit on all four outputs "
@@ -2119,15 +2293,33 @@ def scan_kernel_vs_plain(params, points, lam, arr, flt):
         + ", ".join(f"{n} {x:.6f}" for n, x in terms.items()) + ")"
         + ("" if device is None else
            f", {100 * bound_ms / device:.1f}% of the device time")
-        + "; wrapper by width (CUDA events): "
-        + ", ".join(f"W={w} {ms:.4f} ms" for w, ms in by_width.items()))
+        + f"; SM clock {clock_mhz:.0f} MHz (nvidia-smi, median of "
+        f"{len(clock_samples)} samples while the kernel ran: "
+        + "/".join(f"{x:.0f}" for x in clock_samples) + ")"
+        + ("" if cycles is None else
+           f", {cycles:.1f} cycles a step (device time x clock / T)")
+        + f"; {build['registers']} registers, {build['spill_stores']} B "
+        f"spill stores, {build['spill_loads']} B spill loads, "
+        f"{block['threads']} threads and {block['shared_bytes']} B shared "
+        f"memory a block"
+        + "; by width, wrapper (CUDA events) / device (profiler): "
+        + ", ".join(f"W={w} {ms:.4f}/"
+                    + ("n/a" if device_by_width[w] is None
+                       else f"{device_by_width[w]:.4f}") + " ms"
+                    for w, ms in by_width.items()))
     return dict(max_abs_err=max_abs, values=int(got.size),
                 nan_values=int(nan.sum()), kernel_ms=(k1 + k2) / 2,
                 device_ms=device, plain_ms=(p1 + p2) / 2,
                 plain_ops=counter.ops, bound_ms=bound_ms,
                 bound_by="bytes" if term == "bytes" else "operations",
                 bound_term=term, bounds_ms=terms, bytes=work.bytes,
-                chain_ops=work.chain_ops, ms_by_width=by_width)
+                chain_ops=work.chain_ops, ms_by_width=by_width,
+                device_ms_by_width=device_by_width, sm_clock_mhz=clock_mhz,
+                sm_clock_samples=clock_samples, cycles_per_step=cycles,
+                probe=probe, general_folds=general_folds,
+                registers=build["registers"],
+                spill_bytes=build["spill_stores"] + build["spill_loads"],
+                **block)
 
 
 def sweep_host_split(params, points, lam, arr, flt):
@@ -2677,6 +2869,14 @@ def main(argv=None):
         "max_abs_err": sweep["scan"]["max_abs_err"],
         "ms": sweep["scan"]["kernel_ms"],
         "device_ms": sweep["scan"]["device_ms"],
+        "device_ms_by_width": sweep["scan"]["device_ms_by_width"],
+        "ms_by_width": sweep["scan"]["ms_by_width"],
+        "cycles_per_step": sweep["scan"]["cycles_per_step"],
+        "sm_clock_mhz": sweep["scan"]["sm_clock_mhz"],
+        "registers": sweep["scan"]["registers"],
+        "shared_bytes": sweep["scan"]["shared_bytes"],
+        "probe": sweep["scan"]["probe"],
+        "general_folds": sweep["scan"]["general_folds"],
         "chunk_host_ms": sweep["chunk_host_ms"],
         "plain_ms": sweep["scan"]["plain_ms"],
         "plain_ops": sweep["scan"]["plain_ops"],

@@ -11,11 +11,14 @@ the smoke grid.
 
 On the card, the ``cuda``-marked tests (which skip without one) hold the
 kernel to ``run_chunk_plain`` on the same CUDA tensors bit for bit, NaN as
-NaN, over widths, model counts, pipeline depths, fault tables, initial
-replicas and non-finite knob rows; chunks of 1 and 3 equal a chunk of 256
-through the kernel, and each chunk is one launch. On a machine with the
-card (where jax may be absent: the reference is imported inside the one
-test that needs it):
+NaN, over widths, model counts, pipeline depths (both sides of the
+kernel's long-lead path at L = 2 tiles, and the deepest at 4,096 worlds),
+fault tables, initial replicas, non-finite knob rows, horizons that end
+inside a tile, chunks whose lanes end inside a block, and chunks of more
+blocks than the card holds at once; chunks of 1 and 3 equal a chunk of
+256 through the kernel, and each chunk is one
+launch. On a machine with the card (where jax may be absent: the
+reference is imported inside the one test that needs it):
 
     python -m pytest --noconftest tests/test_torch_sweep_kernel.py -m cuda -q
 """
@@ -36,6 +39,8 @@ from wva_tpu_torch.sweep.fidelity import DEFAULT_SCENARIO
 SOURCE = (Path(__file__).resolve().parents[1] / "wva_tpu_torch" / "sweep"
           / "csrc" / "world_scan.cu")
 PARAMS = world.WorldParams(horizon_s=1200.0)
+TILE = int(re.search(r"kTile = (\d+);", SOURCE.read_text()).group(1))
+LANES = int(re.search(r"kLanes = (\d+);", SOURCE.read_text()).group(1))
 KEYS = ("attainment", "chip_seconds", "wrong_direction", "arrivals_total")
 NON_FINITE = (kb.PolicyKnobs(target_utilization=float("nan")),
               kb.PolicyKnobs(level_gain=float("nan"),
@@ -271,6 +276,64 @@ FIDELITY_LEAD = world.WorldParams(
 def test_kernel_matches_plain_at_every_lead(cuda, startup_s):
     params = world.WorldParams(horizon_s=1200.0, startup_s=startup_s)
     got, want, _ = kernel_and_plain(params, 256, 1, cuda, seed=3)
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [2 * TILE - 1, 2 * TILE])
+def test_kernel_matches_plain_at_the_long_lead_edge(cuda, lead):
+    """Leads below two tiles mask each step's window and read the matured
+    lane each step; from two tiles on neither is needed."""
+    params = world.WorldParams(horizon_s=1200.0, startup_s=5.0 * lead)
+    assert params.lead_steps == lead
+    got, want, _ = kernel_and_plain(params, 256, 1, cuda, seed=lead)
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_at_the_deepest_lead_at_4096_worlds(cuda):
+    params = world.WorldParams(horizon_s=1200.0,
+                               startup_s=5.0 * scan_kernel.MAX_LEAD)
+    got, want, launched = kernel_and_plain(params, 4096, 1, cuda, seed=9)
+    assert launched == 1
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n_models", [(24, 1), (1, 3), (128, 1)])
+def test_kernel_matches_plain_past_one_wave(cuda, lead, n_models):
+    """A block an SM: 6,000 worlds take more blocks than the card holds at
+    once, 256 worlds fewer; both with non-finite knob rows."""
+    params = world.WorldParams(horizon_s=1200.0, startup_s=5.0 * lead)
+    for n_worlds in (256, 6000):
+        got, want, launched = kernel_and_plain(
+            params, n_worlds, n_models, cuda, non_finite=True, seed=lead)
+        assert launched == 1
+        assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_models", [1, 3])
+@pytest.mark.parametrize("steps", [1, TILE - 1, TILE + 1])
+def test_kernel_matches_plain_on_ragged_tiles(cuda, steps, n_models):
+    """Horizons that end inside a tile of the kernel's steps."""
+    params = world.WorldParams(horizon_s=5.0 * steps, startup_s=60.0)
+    assert params.steps == steps
+    got, want, launched = kernel_and_plain(params, 64, n_models, cuda,
+                                           seed=steps)
+    assert launched == 1
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_worlds,n_models", [(LANES + 5, 1), (13, 3)])
+def test_kernel_matches_plain_on_ragged_lane_groups(cuda, n_worlds,
+                                                    n_models):
+    """W x M not a multiple of a block's lanes: the last block's spare
+    threads write nothing."""
+    assert n_worlds * n_models % LANES
+    got, want, _ = kernel_and_plain(PARAMS, n_worlds, n_models, cuda,
+                                    seed=n_worlds)
     assert_same(got, want)
 
 

@@ -2,9 +2,12 @@
 
 ``csrc/world_scan.cu`` computes what the JAX package's jitted scan
 (``wva_tpu/sweep/world.py:177`` ``_build_scan``) computes: a chunk of fluid
-worlds advanced through the whole horizon, one thread a (world, model)
-lane walking the T steps in order with its state in registers and its
-provisioning pipeline in shared memory.
+worlds advanced through the whole horizon. A block holds 32 (world, model)
+lanes and splits each step into its three stages (forecast and sizing,
+control, serving), each walked by its own warp in tiles of steps handed
+on through shared memory, with the divisions in a pool of warps, one step
+a thread, and the provisioning pipeline's pending sums as running partial
+folds in registers.
 :func:`wva_tpu_torch.sweep.world.run_chunk` is the wrapper the sweep calls:
 on CUDA tensors it runs :func:`launch` once a chunk, on CPU tensors the
 plain version ``run_chunk_plain``.
@@ -32,6 +35,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.world_scan_block
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = None
 
 
 LIBRARY = cuda_build.Library(_SOURCE, _bind,
@@ -55,14 +61,15 @@ CONSTANT_NAMES = (
     "init_replicas", "err_gain", "two",
 )
 
-# The longest chain of dependent operations one step hands to the next
-# (csrc/world_scan.cu): the Holt trend through level + trend, * (1-ga),
+# The longest chain of dependent operations one step of the plain loop
+# hands to the next: the Holt trend through level + trend, * (1-ga),
 # + ga*obs, the update's select, - level, * gb, + (1-gb)*trend, select.
-# The other carries are shorter (the queue 6, the pipeline's last two lanes
-# into the next short 5, ready and desired 4). The IEEE divisions (~9
-# dependent instructions, ~40 cycles each) feed the TTFT, the smoothed
-# error and the raw desired count, which no carry reads back through
-# itself, so none is on the chain.
+# The other carries are shorter (the queue 6; the pipeline's new tail
+# through the next step's last two lanes of the fold, ready + pending,
+# desired less it, the max and the new tail, 6; ready and desired 4). The
+# six IEEE divisions (~9 dependent instructions, ~40 cycles each) feed the
+# observation, the smoothed error, the raw desired count and the TTFT,
+# which no carry reads back through itself, so none is on the chain.
 CHAIN_OPS_PER_STEP = 8
 
 
@@ -95,6 +102,18 @@ def work(worlds: int, models: int, steps: int) -> Work:
               + 2 * steps * lanes + 4 * lanes)
     return Work(worlds=worlds, models=models, steps=steps, bytes=4 * floats,
                 chain_ops=steps * CHAIN_OPS_PER_STEP if lanes else 0)
+
+
+def block(lead: int) -> dict[str, int]:
+    """A block's threads and dynamic shared memory, in bytes, at a pipeline
+    of ``lead`` lanes, as the built library launches it."""
+    if not 1 <= lead <= MAX_LEAD:
+        raise ValueError(f"lead={lead} steps is outside the kernel's 1.."
+                         f"{MAX_LEAD}")
+    threads, shared = ctypes.c_int(), ctypes.c_int()
+    LIBRARY.load().world_scan_block(lead, ctypes.byref(threads),
+                                    ctypes.byref(shared))
+    return {"threads": threads.value, "shared_bytes": shared.value}
 
 
 def launch(knob_rows: torch.Tensor, lam_t: torch.Tensor,
