@@ -7,16 +7,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Build the three kernels, one ``nvcc`` each, started together: the
+1. Build the four kernels, one ``nvcc`` each, started together: the
    sizing bisection from ``wva_tpu_torch/analyzers/queueing/csrc/
    sizing_bisection.cu``, the forecaster fits from ``wva_tpu_torch/
-   forecast/csrc/fit_grid.cu`` and the sweep's horizon scan from
-   ``wva_tpu_torch/sweep/csrc/world_scan.cu``. Print the build time, each
-   sizing instantiation's registers, spills and shared memory (it fails on
-   a spill), the SASS instructions per 32-state chunk, the fit and scan
-   kernels' registers, spills and local memory a thread, the scan kernel's
-   threads and shared memory a block and its SASS instructions, and the
-   card's name and power limit.
+   forecast/csrc/fit_grid.cu``, the sweep's horizon scan from
+   ``wva_tpu_torch/sweep/csrc/world_scan.cu`` and the EKF tuner's h and
+   jacobian from ``wva_tpu_torch/analyzers/queueing/csrc/
+   ekf_jacobian.cu``. Print the build time, each sizing instantiation's
+   registers, spills and shared memory (it fails on a spill), the SASS
+   instructions per 32-state chunk, the fit, scan and jacobian kernels'
+   registers, spills and local memory a thread, the scan kernel's threads
+   and shared memory a block, the scan and jacobian kernels' SASS
+   instructions, and the card's name and power limit.
 2. Hold the kernel against its plain PyTorch version on the card: seeded
    populations at C in {1, 77, 1024, 8192} and k_cols in {256, 512, 1024,
    2048} (every NV instantiation) at rtol 2e-3, disabled targets at 1e-5
@@ -67,23 +69,32 @@ Phases (any failure raises and the script exits non-zero):
    ``dryrun_multichip(n)`` for n in {1, 2, 4, 8}, logical shards on the one
    card unless the process has n cards (its chunked edge rows bitwise equal
    to an unsharded solve), the cheapest row and the rates against the CPU.
-6. Drive this slice's main path, the emulated control loop, on the
-   headline world: bench.py's ``run_policy("ours-realistic")`` (restated
-   below) through the port's ``EmulationHarness`` -> ``build_manager`` ->
-   ``SaturationEngine`` with the engine on the card: one Llama-3.1-8B
-   variant on v5e-8 slices, profiles 2x off and the EKF tuner live,
-   forecasting and the fused program on, 5 s engine ticks over 2280
-   emulated seconds. Both kernels' counts are set to 0 just before it and
-   read just after. It must reach attainment 1.0, a peak of 8 slices, 4 at
-   the end and chip-seconds in 121,160-121,800, launch both kernels, and
-   take more than 300 tuner steps ending within 10% of the true alpha.
-   Print its wall time, the engine tick's host-clock ms (mean, p50, p99)
-   and a per-tick breakdown (tuner step, grids, fused program, the rest),
-   the tuner's steps, NIS rejections, parameters and step time, and one
-   tuner step's PyTorch op count and time on the card. Then run its first
-   600 emulated seconds with ``device="cpu"`` (the plain versions): desired
-   and target replicas, action and ``set_by`` must be equal in every
-   engine cycle.
+6. Hold the EKF jacobian kernel against its plain version (``jacfwd``)
+   on CUDA tensors at the tuner's first state and ``JACOBIAN_EDGES`` (the
+   rate clipped high and low and unclipped, k = 1, B and 2048, no prompt,
+   under one output token): every entry of h and H at rtol 2e-3, and each
+   entry of H within 2e-3 of its row's largest. Then drive this slice's main path, the emulated
+   control loop, on the headline world: bench.py's
+   ``run_policy("ours-realistic")`` (restated below) through the port's
+   ``EmulationHarness`` -> ``build_manager`` -> ``SaturationEngine`` with
+   the engine on the card: one Llama-3.1-8B variant on v5e-8 slices,
+   profiles 2x off and the EKF tuner live, forecasting and the fused
+   program on, 5 s engine ticks over 2280 emulated seconds. The sizing,
+   fit and jacobian kernels' counts are set to 0 just before it and read
+   just after. It must reach attainment 1.0, a peak of 8 slices, 4 at the
+   end and chip-seconds in 121,160-121,800, launch the sizing and fit
+   kernels, take more than 300 tuner steps ending within 10% of the true
+   alpha, and launch the jacobian kernel once a tuner step. Print its wall
+   time, the engine tick's host-clock ms (mean, p50, p99) and a per-tick
+   breakdown (tuner step, grids, fused program, the rest), the tuner's
+   steps, NIS rejections, parameters and step time, and one step's h and
+   H: the kernel through the wrapper and its launch alone (CUDA events),
+   on the device (profiler), the plain ``jacfwd``'s time, PyTorch ops and
+   device busy time, and the bound. Then run its first 600 emulated
+   seconds with ``device="cpu"`` (the plain versions): desired and target
+   replicas, action and ``set_by`` must be equal in every engine cycle;
+   the first tuner step whose accept flag differs, if one does, is
+   printed with both NIS.
 7. Drive the policy sweep on the card at ``make bench-sweep``'s full
    shape (bench.py's ``sweep_plane_bench``, restated below): the default
    knob grid (48 points) x 32 train seeds, 8 holdout seeds, chunks of 256,
@@ -133,6 +144,7 @@ import dataclasses
 import functools
 import gc
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -183,6 +195,14 @@ from wva_tpu_torch.sweep import world as sweep_world
 from wva_tpu_torch.sweep.fidelity import fidelity_check
 from wva_tpu_torch.utils import dispatch
 
+# Only so that --only world-times runs in checkouts of the port older than
+# the jacobian kernel (the script copied there, to time the parent in the
+# same call); every other mode needs the kernel and stops without it.
+if importlib.util.find_spec("wva_tpu_torch.analyzers.queueing.jacobian_kernel"):
+    from wva_tpu_torch.analyzers.queueing import jacobian_kernel
+else:
+    jacobian_kernel = None
+
 RTOL = 2e-3
 RTOL_DISABLED = 1e-5
 INSTANTIATIONS = {8, 16, 32, 64}  # values per lane (NV), k_cols 256..2048
@@ -205,7 +225,8 @@ def require(ok, what):
 
 
 def phase_build():
-    libraries = (_build.LIBRARY, fit_kernel.LIBRARY, scan_kernel.LIBRARY)
+    libraries = (_build.LIBRARY, fit_kernel.LIBRARY, scan_kernel.LIBRARY,
+                 jacobian_kernel.LIBRARY)
     fresh = [not lib.path().exists() for lib in libraries]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
@@ -260,6 +281,16 @@ def phase_build():
             f"{sum(ops.values())} instructions: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
         resources.append(dict(kernel="world_scan", **scan, **block))
+    for jac in cuda_build.resources(jacobian_kernel.LIBRARY.build_log()):
+        ops = next(ops for name, ops in sass_functions(paths[3])
+                   if "ekf_jacobian_kernel" in name)
+        log(f"[build] ekf_jacobian: {jac['registers']} registers, "
+            f"{jac['spill_stores']} B spill stores, {jac['spill_loads']} B "
+            f"spill loads, {jac['stack']} B local memory a thread, "
+            f"{jac['smem']} B shared memory a block; SASS "
+            f"{sum(ops.values())} instructions: "
+            + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
+        resources.append(dict(kernel="ekf_jacobian", **jac))
     per_chunk = sass_per_chunk(path)
     log(f"[build] SASS per chunk of 32 states (NV=64 less NV=32, over 32): "
         f"{sum(per_chunk.values()):.2f} instructions: "
@@ -1708,6 +1739,24 @@ WORLD_END_SLICES = 4
 CHIP_SECONDS_BAND = (121_160, 121_800)
 TUNER_MIN_STEPS = 300
 TUNER_ALPHA_RTOL = 0.10
+# The tuner's first state in the world (the profile 2x off) and a ramp
+# operating point: env = (lambda per ms, avg input tokens, avg output
+# tokens, max batch, k). There lambda is clipped to lambda_max.
+TUNER_X = (PROFILE_ALPHA_MS * MISCAL_FACTOR, PROFILE_BETA * MISCAL_FACTOR,
+           PROFILE_GAMMA * MISCAL_FACTOR)
+TUNER_ENV = (40.0 / 1000.0, 512.0, 253.0, 96.0, 480.0)
+# Where the EKF jacobian kernel's branches turn, at TUNER_X: name -> env.
+# tests/test_torch_jacobian_host.py holds each to its branch.
+JACOBIAN_EDGES = {
+    "lambda clipped high": TUNER_ENV,
+    "lambda clipped low": (1e-9, 512.0, 253.0, 96.0, 480.0),
+    "lambda unclipped": (0.005, 512.0, 253.0, 96.0, 480.0),
+    "k = 1": (0.005, 512.0, 253.0, 96.0, 1.0),
+    "k = B": (0.005, 512.0, 253.0, 96.0, 96.0),
+    "k = 2048": (0.005, 512.0, 253.0, 96.0, 2048.0),
+    "no prompt": (0.005, 0.0, 253.0, 96.0, 480.0),
+    "output under one token": (0.005, 512.0, 0.5, 96.0, 480.0),
+}
 TRACE_RING = 4096  # more cycle records than the world makes
 
 
@@ -1794,6 +1843,7 @@ def run_world(device, seconds=WORLD_SECONDS, config=None, statuses=False):
     engine = harness.manager.engine
     times = {"tick": [], "tuner step": [], "grids": [], "fused program": []}
     tick_gc = []
+    tuner_log = []  # (NIS, rejected) of every tuner step
 
     def timed(fn, label, keep=lambda out: True):
         def wrapper(*args, **kwargs):
@@ -1804,8 +1854,13 @@ def run_world(device, seconds=WORLD_SECONDS, config=None, statuses=False):
             return out
         return wrapper
 
+    def logged(out):
+        if out is not None:
+            tuner_log.append((out.nis, out.validation_failed))
+        return out is not None
+
     engine.slo_tuner.observe = timed(engine.slo_tuner.observe, "tuner step",
-                                     keep=lambda out: out is not None)
+                                     keep=logged)
     engine._fused_prepare = timed(engine._fused_prepare, "grids")
     engine._fused_dispatch = timed(engine._fused_dispatch, "fused program")
     on_tick = engine.executor.on_tick
@@ -1852,6 +1907,7 @@ def run_world(device, seconds=WORLD_SECONDS, config=None, statuses=False):
         tuner=dict(steps=tuner.steps if tuner else 0,
                    nis_rejected=tuner.rejected if tuner else 0,
                    final_parms=[sp.alpha, sp.beta, sp.gamma]),
+        tuner_log=tuner_log,
         cycles=[cycle_summary(r) for r in records],
         records=records, statuses=state["statuses"], wall_s=wall_s,
         times=times, tick_gc=tick_gc)
@@ -1882,57 +1938,158 @@ def device_busy_ms(fn, reps, warm=True):
             sum(e.count for e in busy) / reps)
 
 
-# The least time one tuner step's h and H could take on an H100, from the
-# code and its shapes (_observe_and_jacobian through _chain_stats at K_MAX
-# = 2048 states, the value and three forward-mode tangents): the bytes (x
-# and env read, h and H written), the elements the step's pointwise ops
-# write at the float32 rate, and the dependent chain of an evaluation
-# parallel over the states: the rate bounds (14), the clip (2), log and
-# the chain ratio (2), the prefix sum over 2048 states as a tree (11), the
-# clamp (1), logsumexp (a max tree 11, subtract, exp, a sum tree 11, log,
-# add: 26), exp (2), the two weighted sums (12), throughput and the
-# response times (5), prefill at the mean occupancy and the latencies (10):
-# 85 operations, doubled because each tangent follows its value and a
-# product's tangent adds one more.
-TUNER_STEP_BYTES = 4 * (3 + 5 + 2 + 6)
-TUNER_CHAIN_OPS = 2 * 85
-FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+def jacobian_rows_err(got, want):
+    """(largest abs difference, largest difference relative to h or to its
+    H row's largest entry, largest relative to its own entry) of two
+    ``[2, 4]`` outputs."""
+    got, want = (t.double().cpu() for t in (got, want))
+    scale = torch.cat([want[:, :1].abs(),
+                       want[:, 1:].abs().amax(dim=1, keepdim=True)
+                       .expand(2, 3)], dim=1)
+    diff = (got - want).abs()
+    own = torch.where(diff == 0, 0.0, diff / want.abs())
+    return (float(diff.max()), float((diff / scale).max()), float(own.max()))
+
+
+def jacobian_vs_plain():
+    """The jacobian kernel against its plain version (``jacfwd``) on the same
+    CUDA tensors at TUNER_X and every JACOBIAN_EDGES point: every entry of h
+    and H at rtol RTOL, and each entry of H within RTOL of its row's largest
+    entry (the row's rule alone would not see an error in a column far
+    smaller than the row's largest, dh/dalpha beside dh/dgamma)."""
+    x = torch.tensor(TUNER_X, dtype=torch.float32, device=CUDA)
+    errs = {}
+    for name, env in JACOBIAN_EDGES.items():
+        e = torch.tensor(env, dtype=torch.float32, device=CUDA)
+        got = jacobian_kernel.launch(x, e)
+        h, jac = ekf.observe_and_jacobian_plain(x, e)
+        want = torch.cat([h[:, None], jac], dim=1)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+                f"jacobian at {name}: {got.tolist()} against {want.tolist()}")
+        errs[name] = jacobian_rows_err(got, want)
+        require(errs[name][1] <= RTOL and errs[name][2] <= RTOL,
+                f"jacobian at {name}: {got.tolist()} against {want.tolist()}")
+    max_abs, max_rel, max_entry = (max(e[i] for e in errs.values())
+                                   for i in range(3))
+    log(f"[jacobian] kernel against jacfwd on the card at {len(errs)} points "
+        f"(x {TUNER_X}): largest difference {max_rel:.3g} of h or its H "
+        f"row's largest entry, {max_entry:.3g} of its own entry (tolerance "
+        f"{RTOL} each), {max_abs:.4g} absolute; "
+        + ", ".join(f"{n} {e[1]:.2g}" for n, e in errs.items()))
+    return dict(max_abs_err=max_abs, max_rel_err=max_rel,
+                max_entry_rel_err=max_entry,
+                rel_err_by_point={n: e[1] for n, e in errs.items()})
+
+
+def host_ms(fn, reps):
+    """Mean host-clock ms of ``fn`` (which ends by reading the card) over
+    ``reps`` calls, after one more."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def tuner_step_ops():
-    """One tuner step's h and jacobian on the card, at the world's starting
-    profile and a ramp operating point: the PyTorch ops it dispatches, its
-    time by CUDA events, the device's busy time and kernel count, and the
-    bound."""
-    x = torch.tensor([PROFILE_ALPHA_MS * MISCAL_FACTOR,
-                      PROFILE_BETA * MISCAL_FACTOR,
-                      PROFILE_GAMMA * MISCAL_FACTOR],
-                     dtype=torch.float32, device=CUDA)
-    env = torch.tensor([40.0 / 1000.0, 512.0, 253.0, 96.0, 480.0],
-                       dtype=torch.float32, device=CUDA)
-    ekf._observe_and_jacobian(x, env)
+    """One tuner step's h and H on the card at TUNER_X and TUNER_ENV: the
+    kernel through the tuner's wrapper and its launch alone (CUDA events, in
+    turns with the plain version), on the device (torch.profiler); the
+    plain version's PyTorch ops, time and device busy time; the bound. On
+    the host clock: a whole ``KalmanTuner.run`` there, and its h and H alone
+    (the copy up, the launch, the copy down)."""
+    x = torch.tensor(TUNER_X, dtype=torch.float32, device=CUDA)
+    env = torch.tensor(TUNER_ENV, dtype=torch.float32, device=CUDA)
+    calls = {"plain": lambda: ekf.observe_and_jacobian_plain(x, env),
+             "wrapper": lambda: ekf._observe_and_jacobian(x, env),
+             "launch": lambda: jacobian_kernel.launch(x, env)}
+    calls["plain"]()
     with OpCount() as count:
-        ekf._observe_and_jacobian(x, env)
-    ms = time_ms(lambda: ekf._observe_and_jacobian(x, env), 20)
-    busy_ms, kernels = device_busy_ms(
-        lambda: ekf._observe_and_jacobian(x, env), 20)
-    bounds = {"bytes": 1e3 * TUNER_STEP_BYTES / cuda_build.HBM_BYTES_PER_S,
-              "operations": 1e3 * count.pointwise_elements / FP32_OPS_PER_S,
-              "chain": 1e3 * TUNER_CHAIN_OPS
-              * cuda_build.CYCLES_PER_DEPENDENT_OP / cuda_build.CLOCK_HZ}
-    term = max(bounds, key=bounds.get)
-    return dict(ops=count.ops, ms=ms, device_busy_ms=busy_ms,
-                kernels=kernels, pointwise_elements=count.pointwise_elements,
-                bound_ms=bounds[term], bound_term=term, bounds_ms=bounds)
+        calls["plain"]()
+    runs = {name: [] for name in calls}
+    for turn in (list(calls), list(calls)[::-1]):
+        for name in turn:
+            runs[name].append(time_ms(calls[name], 20 if name == "plain"
+                                      else 1000))
+    ms = {name: sum(t) / len(t) for name, t in runs.items()}
+    device = device_ms(calls["launch"], 200, "ekf_jacobian_kernel")
+    busy_ms, kernels = device_busy_ms(calls["plain"], 20)
+    work = jacobian_kernel.work(count.pointwise_elements)
+    bound_ms, term = work.bound()
+    h = calls["wrapper"]()[0].tolist()
+    kalman = ekf.KalmanTuner(ServiceParms(*TUNER_X), device=CUDA)
+    observed = ekf.TunerEnvironment(
+        lambda_per_min=TUNER_ENV[0] * 60_000.0,
+        avg_input_tokens=TUNER_ENV[1], avg_output_tokens=TUNER_ENV[2],
+        max_batch_size=int(TUNER_ENV[3]),
+        max_queue_size=int(TUNER_ENV[4] - TUNER_ENV[3]),
+        avg_ttft_ms=h[0], avg_itl_ms=h[1])
+    inputs = [*TUNER_X, *TUNER_ENV]
+
+    def observation():
+        up = torch.tensor(inputs, dtype=torch.float32, device=CUDA)
+        return ekf._observation(up[:3], up[3:]).cpu()
+
+    step_host = dict(run_ms=host_ms(lambda: kalman.run(observed), 200),
+                     observation_ms=host_ms(observation, 200))
+    return dict(wrapper_ms=ms["wrapper"], launch_ms=ms["launch"],
+                host=step_host,
+                device_ms=device, runs_ms=runs, plain_ms=ms["plain"],
+                plain_ops=count.ops, plain_device_busy_ms=busy_ms,
+                plain_kernels=kernels,
+                pointwise_elements=count.pointwise_elements,
+                bound_ms=bound_ms, bound_term=term,
+                bound_by="bytes" if term == "bytes" else "operations",
+                bounds_ms=work.bound_terms_ms())
+
+
+def first_flag_difference(log_a, log_b):
+    """The first tuner step whose accept flag differs between two runs'
+    (NIS, rejected) logs, as text, or None."""
+    for i, (a, b) in enumerate(zip(log_a, log_b)):
+        if a[1] != b[1]:
+            return (f"step {i}: rejected {a[1]} (NIS {a[0]:.6g}) against "
+                    f"{b[1]} (NIS {b[0]:.6g})")
+    return None
+
+
+def world_times():
+    """The headline world on the card alone: its tick and tuner-step times
+    and the tuner's outcome, using only what every version of the port has
+    (copy the script into an older checkout to compare two trees in one
+    call), with every tuner step's (NIS, rejected) in ``tuner_log``: two
+    runs' lines go to ``first_flag_difference``."""
+    world = run_world(None)
+    tick, steps = world["times"]["tick"], world["times"]["tuner step"][1:]
+    return dict(
+        slo_attainment=world["slo_attainment"],
+        peak_slices=world["peak_slices"],
+        slices_at_end=world["slices_at_end"],
+        chip_seconds=world["chip_seconds"], tuner=world["tuner"],
+        wall_s=world["wall_s"],
+        tick_ms=dict(mean=sum(tick) / len(tick), p50=_percentile(tick, 50),
+                     p99=_percentile(tick, 99), ticks=len(tick)),
+        per_tick_ms={k: sum(v) / len(tick)
+                     for k, v in world["times"].items() if k != "tick"},
+        tuner_step_ms=dict(mean=sum(steps) / len(steps),
+                           p50=_percentile(steps, 50),
+                           p99=_percentile(steps, 99),
+                           first=world["times"]["tuner step"][0]),
+        tuner_log=world["tuner_log"])
 
 
 def phase_world():
-    """The headline world on the card (the main path: both kernels' counts
-    set to 0 just before it and read just after), then its first
-    ORACLE_SECONDS on the CPU through the plain versions."""
+    """The jacobian kernel against its plain version, then the headline
+    world on the card (the main path: the three kernels' counts set to 0
+    just before it and read just after), then its first ORACLE_SECONDS on
+    the CPU through the plain versions."""
+    jacobian = jacobian_vs_plain()
     sizing_kernel.launches = fit_kernel.launches = 0
+    jacobian_kernel.launches = 0
     world = run_world(None)
-    launches = (sizing_kernel.launches, fit_kernel.launches)
+    launches = (sizing_kernel.launches, fit_kernel.launches,
+                jacobian_kernel.launches)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -1942,15 +2099,15 @@ def phase_world():
     step = tuner_step_ops()
     times = world["times"]
     tick = times["tick"]
-    # The first tuner step warms torch.func up; it is reported on its own
-    # and left out of the step's distribution (not out of the ticks').
+    # The first tuner step loads the kernel's library; it is reported on its
+    # own and left out of the step's distribution (not out of the ticks').
     first_step, steps = times["tuner step"][0], times["tuner step"][1:]
     log(f"[world] {WORLD_SECONDS:.0f} emulated s in {world['wall_s']:.1f} s "
         f"wall: attainment {world['slo_attainment']}, peak "
         f"{world['peak_slices']} slices, {world['slices_at_end']} at the end, "
         f"{world['chip_seconds']} chip-seconds, {world['requests_served']} "
         f"requests; sizing launches {launches[0]}, fit launches "
-        f"{launches[1]}")
+        f"{launches[1]}, jacobian launches {launches[2]}")
     log(f"[world] engine tick ms over {len(tick)} ticks: mean "
         f"{sum(tick) / len(tick):.2f}, p50 {_percentile(tick, 50):.2f}, p99 "
         f"{_percentile(tick, 99):.2f}, max {max(tick):.2f} (host clock)")
@@ -1971,15 +2128,29 @@ def phase_world():
     log(f"[world] tuner: {world['tuner']['steps']} steps, "
         f"{world['tuner']['nis_rejected']} NIS rejections, final (alpha, "
         f"beta, gamma) {world['tuner']['final_parms']} against {TRUE_PARMS}; "
-        f"step ms after the first: mean {sum(steps) / len(steps):.2f}, p50 "
-        f"{_percentile(steps, 50):.2f}, p99 {_percentile(steps, 99):.2f}; "
-        f"the first {first_step:.1f} (host clock); one step's h and H: {step['ops']} PyTorch ops, "
-        f"{step['ms']:.3f} ms (CUDA events), the device busy "
-        f"{step['device_busy_ms']:.3f} ms in {step['kernels']:.0f} kernels "
-        f"(profiler); its bound {step['bound_ms']:.6f} ms "
-        f"({step['bound_term']}; "
+        f"step ms after the first: mean {sum(steps) / len(steps):.3f}, p50 "
+        f"{_percentile(steps, 50):.3f}, p99 {_percentile(steps, 99):.3f}; "
+        f"the first {first_step:.1f} (host clock)")
+    log(f"[world] one step's h and H (x {TUNER_X}, env {TUNER_ENV}): the "
+        f"kernel through the wrapper "
+        f"{'/'.join(f'{t:.4f}' for t in step['runs_ms']['wrapper'])} ms, "
+        f"its launch alone "
+        f"{'/'.join(f'{t:.4f}' for t in step['runs_ms']['launch'])} ms "
+        f"(CUDA events), "
+        + ("on the device not measured (no device time in the profiler's "
+           "trace)" if step["device_ms"] is None else
+           f"on the device {step['device_ms']:.5f} ms (torch.profiler)")
+        + f"; the plain jacfwd "
+        f"{'/'.join(f'{t:.3f}' for t in step['runs_ms']['plain'])} ms "
+        f"(CUDA events), {step['plain_ops']} PyTorch ops, the device busy "
+        f"{step['plain_device_busy_ms']:.3f} ms in "
+        f"{step['plain_kernels']:.0f} kernels (profiler); the bound "
+        f"{step['bound_ms']:.6f} ms ({step['bound_term']}; "
         + ", ".join(f"{n} {x:.6f}" for n, x in step["bounds_ms"].items())
-        + f"; {step['pointwise_elements']} pointwise elements)")
+        + f"; {step['pointwise_elements']} pointwise elements); library: "
+        f"none. On the host clock: KalmanTuner.run "
+        f"{step['host']['run_ms']:.4f} ms, its h and H with both copies "
+        f"{step['host']['observation_ms']:.4f} ms")
     require(world["slo_attainment"] == 1.0,
             f"attainment {world['slo_attainment']}")
     require(world["peak_slices"] == WORLD_PEAK_SLICES,
@@ -1993,6 +2164,9 @@ def phase_world():
             f"world launches: sizing {launches[0]}, fit {launches[1]}")
     require(world["tuner"]["steps"] > TUNER_MIN_STEPS,
             f"{world['tuner']['steps']} tuner steps")
+    require(launches[2] == world["tuner"]["steps"],
+            f"{launches[2]} jacobian launches in "
+            f"{world['tuner']['steps']} tuner steps")
     alpha = world["tuner"]["final_parms"][0]
     require(abs(alpha - TRUE_PARMS[0]) <= TUNER_ALPHA_RTOL * TRUE_PARMS[0],
             f"tuner alpha {alpha}")
@@ -2002,9 +2176,13 @@ def phase_world():
                 (f"{a} != {b}" for a, b in zip(world["cycles"],
                                                oracle["cycles"]) if a != b),
                 f"{len(world['cycles'])} against {n} cycles"))
+    flags = first_flag_difference(world["tuner_log"], oracle["tuner_log"])
     log(f"[world] the CPU oracle ({ORACLE_SECONDS:.0f} emulated s, plain "
         f"versions, {oracle['wall_s']:.1f} s wall) decides as the card in "
-        f"all {n} cycles: desired, target, action and set_by")
+        f"all {n} cycles: desired, target, action and set_by; its "
+        f"{len(oracle['tuner_log'])} tuner steps' accept flags "
+        + (f"differ from the card's first at {flags}" if flags else
+           "equal the card's"))
     return dict(
         launches=launches, wall_s=world["wall_s"],
         slo_attainment=world["slo_attainment"],
@@ -2021,8 +2199,9 @@ def phase_world():
         tuner_step_ms=dict(mean=sum(steps) / len(steps),
                            p50=_percentile(steps, 50),
                            p99=_percentile(steps, 99), first=first_step),
-        tuner_step=step,
-        oracle_cycles=n, oracle_wall_s=oracle["wall_s"])
+        tuner_step=step, jacobian=jacobian,
+        oracle_cycles=n, oracle_wall_s=oracle["wall_s"],
+        oracle_first_flag_difference=flags)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2726,10 +2905,13 @@ def fit_wrapper_times():
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("fit", "fit-times", "sweep"),
+        "--only", choices=("fit", "fit-times", "sweep", "world",
+                           "world-times"),
         help="fit: phases 1 and 4 alone; fit-times: the fit's wrapper and "
         "device times alone (also in an older checkout); sweep: phases 1 and "
-        "7 alone. None prints the result lines.")
+        "7 alone; world: phases 1 and 6 alone; world-times: the headline "
+        "world's tick and tuner step alone (also in an older checkout). "
+        "None prints the result lines.")
     parser.add_argument(
         "--fleet-way", choices=list(FLEET_WAYS)[1:],
         help="run the fleet world this way alone and print its decisions, "
@@ -2746,15 +2928,21 @@ def main(argv=None):
     if args.only == "fit-times":
         log(f"[fit-times] {json.dumps(fit_wrapper_times())}")
         return 0
+    if args.only == "world-times":
+        log(f"[world-times] {json.dumps(world_times())}")
+        return 0
+    if jacobian_kernel is None:
+        print("chip_smoke: this checkout has no jacobian kernel",
+              file=sys.stderr)
+        return 1
     started = time.perf_counter()
     card, resources = phase_build()
-    if args.only in ("fit", "sweep"):
-        if args.only == "fit":
-            phase_fit()
-            phase_forecast()
-        else:
-            phase_sweep()
-        log(f"[time] phases 1 and {4 if args.only == 'fit' else 7} took "
+    if args.only in ("fit", "sweep", "world"):
+        phases = {"fit": (4, lambda: (phase_fit(), phase_forecast())),
+                  "sweep": (7, phase_sweep), "world": (6, phase_world)}
+        number, run = phases[args.only]
+        run()
+        log(f"[time] phases 1 and {number} took "
             f"{time.perf_counter() - started:.1f} s")
         return 0
     times = {}
@@ -2888,6 +3076,30 @@ def main(argv=None):
         "shape": "the bench chunk: W=256, M=1, T=240, L=24",
         "python_ms_per_world": sweep["python_ms_per_world"],
         "ratio_vs_python": sweep["ratio_vs_python"],
+        "card": card,
+    }, {
+        "name": "ekf_jacobian",
+        "route": "cuda",
+        "source": "wva_tpu_torch/analyzers/queueing/csrc/ekf_jacobian.cu",
+        "replaces": "wva_tpu/analyzers/queueing/tuner.py:158 (an XLA "
+                    "program, jax.jacfwd through _chain_stats)",
+        "launches": world["launches"][2],
+        "launches_by_path": {
+            "headline world (2280 s)": world["launches"][2]},
+        "tuner_steps": world["tuner"]["steps"],
+        "max_abs_err": world["jacobian"]["max_abs_err"],
+        "max_rel_err": world["jacobian"]["max_rel_err"],
+        "ms": world["tuner_step"]["wrapper_ms"],
+        "launch_ms": world["tuner_step"]["launch_ms"],
+        "device_ms": world["tuner_step"]["device_ms"],
+        "plain_ms": world["tuner_step"]["plain_ms"],
+        "plain_ops": world["tuner_step"]["plain_ops"],
+        "bound_ms": world["tuner_step"]["bound_ms"],
+        "bound_by": world["tuner_step"]["bound_by"],
+        "bound_term": world["tuner_step"]["bound_term"],
+        "bounds_ms": world["tuner_step"]["bounds_ms"],
+        "library_ms": None,
+        "shape": "one tuner step: C=1, 2048 states, 3 tangents",
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -170,6 +170,7 @@ PORT_MODULES = [
     "__init__.py", "device.py", "cuda_build.py", "entry.py",
     "analyzers/queueing/__init__.py", "analyzers/queueing/_build.py",
     "analyzers/queueing/analyzer.py", "analyzers/queueing/convert.py",
+    "analyzers/queueing/jacobian_kernel.py",
     "analyzers/queueing/queue_model.py", "analyzers/queueing/sizing_kernel.py",
     "analyzers/queueing/tuner.py",
     "config/slo.py",

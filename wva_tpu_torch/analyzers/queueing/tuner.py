@@ -5,10 +5,13 @@ Successor of the reference's dormant tuner
 (``internal/engines/analyzers/queueingmodel/tuner/tuner.go:15-287``), which
 delegates to an external EKF library (``llm-inferno/kalman-filter`` + gonum)
 with numerically propagated Jacobians. The TPU-native redesign differentiates
-straight through the batched M/M/1-SD chain solver with
-``torch.func.jacfwd`` — h(x) = (TTFT, ITL) predicted by the queueing model
-at the observed arrival rate, and H = dh/dx is exact to machine precision;
-h and H are computed on the tuner's device and read back in one transfer.
+straight through the batched M/M/1-SD chain solver: h(x) = (TTFT, ITL)
+predicted by the queueing model at the observed arrival rate, and H = dh/dx
+exact to machine precision, by forward mode. On the card h and H are one
+launch of the hand-written CUDA kernel in :mod:`.jacobian_kernel` (dual
+numbers through the 2048-state chain); on CPU tensors they come from the
+plain version, ``torch.func.jacfwd`` through the queueing model. The step's
+inputs go up in one host-to-device copy and h and H come back in one.
 
 Acceptance follows the reference's NIS gate
 (``tuner/defaults.go:12-19``): under nominal conditions the Normalized
@@ -27,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from wva_tpu_torch.analyzers.queueing import jacobian_kernel
 from wva_tpu_torch.analyzers.queueing.params import (
     K_MAX,
     PerfProfileStore,
@@ -161,6 +165,24 @@ def _observe_and_jacobian(x: torch.Tensor,
     x = [alpha, beta, gamma]; env = [lam_per_ms, avg_in, avg_out, max_batch, k],
     both float32 on one device; h and H come back on that device.
     """
+    hh = _observation(x, env)
+    return hh[:, 0], hh[:, 1:]
+
+
+def _observation(x: torch.Tensor, env: torch.Tensor) -> torch.Tensor:
+    """h in column 0 and H in columns 1-3 of one ``[2, 4]`` tensor. CUDA
+    tensors take one launch of the kernel (raising if it cannot launch, or
+    if x and env are not on one card); CPU tensors the plain version."""
+    if x.device.type == "cpu" and env.device.type == "cpu":
+        h, jac = observe_and_jacobian_plain(x, env)
+        return torch.cat([h[:, None], jac], dim=1)
+    return jacobian_kernel.launch(x, env)
+
+
+def observe_and_jacobian_plain(
+        x: torch.Tensor, env: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: h and H by ``torch.func.jacfwd`` through
+    the queueing model's PyTorch ops, on x and env's device."""
 
     def h(params: torch.Tensor) -> torch.Tensor:
         cand = CandidateBatch(
@@ -221,7 +243,9 @@ class KalmanTuner:
         else:
             k_bound = min(env.max_batch_size * (1 + cfg.max_queue_to_batch_ratio),
                           K_MAX)
-        env_vec = torch.tensor([
+        # x and env go up in one host-to-device copy.
+        inputs = torch.tensor([
+            *self.x,
             env.lambda_per_min / 60_000.0,  # per-minute -> per-ms
             env.avg_input_tokens,
             env.avg_output_tokens,
@@ -235,11 +259,8 @@ class KalmanTuner:
         # Predict (identity transition; reference stateTransitionFunc).
         p_pred = self.P + self._q()
 
-        h_val, h_jac = _observe_and_jacobian(
-            torch.tensor(self.x, dtype=torch.float32, device=self.device),
-            env_vec)
         # One device->host read for h and H together.
-        hh = torch.cat([h_val[:, None], h_jac], dim=1).cpu().numpy()
+        hh = _observation(inputs[:3], inputs[3:]).cpu().numpy()
         h_val = hh[:, 0].astype(np.float64)
         H = hh[:, 1:].astype(np.float64)
 
