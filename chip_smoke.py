@@ -3465,6 +3465,148 @@ def jacobian_times():
                            for _ in range(2)])
 
 
+# --only chain-times: the chain kernels' entries at the main paths' shapes
+# (label, C, k_cols, entries), every row at the worlds' max batch and k.
+CHAIN_TIMED = (("headline world's grids", 8, 512, ("setup", "tail")),
+               ("fleet tick's first call", 2048, 512, ("setup", "tail")),
+               ("staged solve's analyze_batch", 512, 2048, ("analyze",)))
+CHAIN_TIMED_BATCH, CHAIN_TIMED_K = 96, 480
+
+LAUNCH_FLOOR_SOURCE = r"""// An empty kernel: the launch floor.
+#include <cuda_runtime.h>
+__global__ void launch_floor_kernel() {}
+extern "C" {
+int launch_floor_launch(cudaStream_t stream) {
+  launch_floor_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+const char* launch_floor_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+}
+"""
+
+
+def launch_floor():
+    """An empty kernel's launch time (CUDA events) and device time
+    (profiler), twice each: the floor under every launch, not a bound."""
+    source = cuda_build.BUILD_DIR / "launch_floor.cu"
+    source.parent.mkdir(parents=True, exist_ok=True)
+    source.write_text(LAUNCH_FLOOR_SOURCE)
+
+    def bind(lib):
+        lib.launch_floor_launch.argtypes = [ctypes.c_void_p]
+        lib.launch_floor_launch.restype = ctypes.c_int
+
+    lib = cuda_build.Library(source, bind).load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        require(lib.launch_floor_launch(stream) == 0, "empty kernel launch")
+
+    return dict(launch_ms=[time_ms(call, 1000) for _ in range(2)],
+                device_ms=[device_ms(call, 200, "launch_floor_kernel")
+                           for _ in range(2)])
+
+
+def chain_times_inputs(c, seed):
+    """Seeded candidates on the card, every row at CHAIN_TIMED_BATCH and
+    CHAIN_TIMED_K, and targets [3, C] (TTFT, ITL, no TPS)."""
+    rng = np.random.default_rng(seed)
+    cand = qm.candidate_batch(
+        rng.uniform(3.0, 30.0, c), rng.uniform(0.001, 0.05, c),
+        rng.uniform(0.00001, 0.002, c), rng.uniform(64, 2048, c),
+        rng.uniform(32, 1024, c), np.full(c, CHAIN_TIMED_BATCH),
+        np.full(c, CHAIN_TIMED_K), device=CUDA)
+    targets = torch.tensor(np.stack([rng.uniform(100, 3000, c),
+                                     rng.uniform(5, 100, c), np.zeros(c)]),
+                           dtype=torch.float32, device=CUDA)
+    return cand, targets
+
+
+def chain_entry_calls(entry, cand, targets, k_cols):
+    """One chain entry on fixed inputs: its wrapper as the path calls it,
+    its C function alone on the same buffers, its outputs (one launch
+    through the kernel's ``launch``), its plain version and its work (from
+    the plain version's pointwise elements)."""
+    c = int(cand.alpha.shape[0])
+    stream = torch.cuda.current_stream().cuda_stream
+    fields = [f.data_ptr() for f in cand]
+    if entry == "setup":
+        outs = list(chain_setup.launch(cand, k_cols))
+        lib = chain_setup.LIBRARY.load()
+        ptrs = fields + [t.data_ptr() for t in outs]
+        return dict(
+            wrapper=lambda: chain_setup.chain_setup(cand, k_cols),
+            alone=lambda: lib.chain_setup_launch(*ptrs, c, k_cols, stream),
+            outs=outs,
+            plain=lambda: chain_setup.chain_setup_plain(cand, k_cols),
+            work=lambda ops: chain_setup.work(cand, k_cols, ops))
+    plain = chain_setup.chain_setup_plain(cand, k_cols)
+    inputs = dict.fromkeys(("rate", "lam_star", "targets", "lam_max"))
+    if entry == "tail":
+        inputs.update(
+            lam_star=sizing_kernel.sizing_bisection_plain(
+                plain.clm, plain.clm_at_k, cand, targets[:2].contiguous(),
+                plain.lo0, plain.hi0),
+            targets=targets, lam_max=plain.bounds[2].contiguous())
+        args = (cand, inputs["lam_star"], targets, inputs["lam_max"], k_cols)
+        wrapper = functools.partial(chain_stats.size_tail, *args)
+        plain_fn = functools.partial(chain_stats.size_tail_plain, *args)
+    else:
+        inputs["rate"] = 500.0 * (plain.bounds[0] + plain.bounds[2])
+        args = (inputs["rate"], cand, k_cols)
+        wrapper = functools.partial(chain_stats.analyze, *args)
+        plain_fn = functools.partial(chain_stats.analyze_plain, *args)
+    out, valid = chain_stats.launch(
+        cand, k_cols, entry, **{k: v for k, v in inputs.items()
+                                if v is not None})
+    lib = chain_stats.LIBRARY.load()
+    ptrs = fields + [0 if t is None else t.data_ptr()
+                     for t in (*inputs.values(), out, valid)]
+    mode = 0 if entry == "tail" else 1
+    return dict(
+        wrapper=wrapper,
+        alone=lambda: lib.chain_stats_launch(*ptrs, c, k_cols, mode, stream),
+        outs=[out] + ([] if valid is None else [valid]), plain=plain_fn,
+        work=lambda ops: chain_stats.work(cand, entry, ops))
+
+
+def chain_times():
+    """The chain setup and statistics at CHAIN_TIMED's shapes: each entry
+    through its wrapper and its C function alone (CUDA events, in turns:
+    wrapper, launch, launch, wrapper) and on the device (profiler, twice),
+    beside its bound, with the sha256 of its outputs on fixed seeded inputs;
+    an empty kernel's times as the launch floor, and the jacobian kernel's.
+    Uses only what every version of the chain kernels has (copy the script
+    into an older checkout to compare two trees in one call)."""
+    import hashlib
+
+    times = {"launch_floor": launch_floor(), "jacobian": jacobian_times()}
+    for label, c, k_cols, entries in CHAIN_TIMED:
+        cand, targets = chain_times_inputs(c, 700 + c)
+        for entry in entries:
+            calls = chain_entry_calls(entry, cand, targets, k_cols)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in calls["outs"])).hexdigest()
+            with OpCount() as count:
+                calls["plain"]()
+            bound_ms, term = calls["work"](count.pointwise_elements).bound()
+            runs = {"wrapper": [], "alone": []}
+            for turn in ("wrapper", "alone", "alone", "wrapper"):
+                runs[turn].append(time_ms(calls[turn], 1000))
+            kernel = ("chain_setup_kernel" if entry == "setup"
+                      else "chain_stats_kernel")
+            times[f"{entry} C={c} k_cols={k_cols}"] = dict(
+                shape=label, wrapper_ms=runs["wrapper"],
+                launch_ms=runs["alone"],
+                device_ms=[device_ms(calls["alone"], 200, kernel)
+                           for _ in range(2)],
+                bound_ms=bound_ms, bound_term=term, sha256=digest)
+    return times
+
+
 def fit_wrapper_times():
     """``fc.fit_grid``'s time through the wrapper (CUDA events) and on the
     device (torch.profiler) at each of FIT_TIMED, using only what every
@@ -3506,7 +3648,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("fit", "fit-times", "sweep", "world", "chain",
-                           "world-times", "fused-split", "jacobian-times"),
+                           "world-times", "fused-split", "jacobian-times",
+                           "chain-times"),
         help="fit: phases 1 and 4 alone; fit-times: the fit's wrapper and "
         "device times alone (also in an older checkout); sweep: phases 1 and "
         "7 alone; world: phases 1 and 6 alone; chain: phases 1 and 3b alone "
@@ -3514,7 +3657,9 @@ def main(argv=None):
         "world's tick and tuner step alone (also in an older checkout); "
         "fused-split: the fused program's split by part on the headline "
         "world's grids; jacobian-times: the tuner step's h and H kernel "
-        "alone (these two also in an older checkout). "
+        "alone; chain-times: the chain setup and statistics at the main "
+        "paths' shapes, with output digests and the launch floor (these "
+        "three also in an older checkout). "
         "None prints the result lines.")
     parser.add_argument(
         "--fleet-way", choices=list(FLEET_WAYS)[1:],
@@ -3538,6 +3683,9 @@ def main(argv=None):
         return 0
     if args.only == "jacobian-times":
         log(f"[jacobian-times] {json.dumps(jacobian_times())}")
+        return 0
+    if args.only == "chain-times":
+        log(f"[chain-times] {json.dumps(chain_times())}")
         return 0
     if args.only == "fused-split":
         split = fused_split_times()

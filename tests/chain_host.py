@@ -12,6 +12,11 @@ by lane, the block's warp totals in one warp's tree.
 - ``host_setup``: the chain-setup kernel, one warp a row;
 - ``host_stats``: the chain-statistics kernel without tangents, one warp a
   row, in its two modes (0 the sizing path's tail, 1 ``analyze_batch``);
+- both take a ``schedule``: 0 the kernels' (each segment's own log mu
+  dealt across the lanes through a shared segment, the statistics walking
+  only a row's segments), 1 the oracle, PR 12's (each lane its own 8
+  states, every segment of the instantiation walked), which the kernels'
+  must equal bit for bit;
 - ``host_jacobian``: the three-tangent kernel, one block of 512 threads;
 - ``host_rule``: one forward rule (maximum, minimum, clamp(min=)).
 """
@@ -29,6 +34,7 @@ CSRC = (Path(__file__).resolve().parents[1] / "wva_tpu_torch" / "analyzers"
 
 HARNESS = r"""
 #include <math.h>
+#include <algorithm>
 #define __device__
 #define __forceinline__ inline
 #include "chain_common.cuh"
@@ -68,9 +74,64 @@ namespace {
 @SETUP@
 }  // namespace
 
-// chain_setup_kernel's warp for row c, lane by lane.
+// chain_setup_kernel's warp for row c, lane by lane: each segment's own log
+// mu dealt across the lanes into the row's shared segment, the lanes' sums,
+// the scan, the prefixes staged back and stored, clm_at_k from the stage.
 void run_row(const Rows& rows, int c, int n_rows, int k_cols, float* bounds,
              float* clm, float* clm_at_k) {
+  const Cand<0> cand = row_candidate(rows, c);
+  const Bounds<0> b = rate_bounds(cand);
+  bounds[c] = bounds[n_rows + c] = b.lo.v;
+  bounds[2 * n_rows + c] = bounds[3 * n_rows + c] = b.hi.v;
+  if (cand.k < 1 || cand.k > k_cols) clm_at_k[c] = NAN;
+  const Num<0> sat = saturated_log_mu(cand);
+  float* out = clm + static_cast<long long>(c) * k_cols;
+  float seg[kSegment];
+  for (int j = 0; j < kSegment; ++j) seg[j] = NAN;  // stale to every read
+  float carry = -0.0f;
+  const int segments = (k_cols + kSegment - 1) / kSegment;
+  for (int s = 0; s < segments; ++s) {
+    const int count = own_count(cand, s, k_cols);
+    Num<0> own[32][kPerLane];
+    for (int l = 0; l < 32; ++l) deal_own_log_mu(cand, s, l, count, seg);
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < kPerLane; ++i)
+        own[l][i] = constant<0>(count > 0 ? seg[kPerLane * l + i] : 0.0f);
+    float v[32][kPerLane];
+    Num<0> incl[32];
+    for (int l = 0; l < 32; ++l)
+      incl[l] = constant<0>(lane_segment(cand, sat, s, l, k_cols, own[l],
+                                         v[l]));
+    hs_scan(incl);
+    for (int l = 0; l < 32; ++l) {
+      const float below = l == 0 ? -0.0f : incl[l - 1].v;
+      const float base = carry + below;
+      for (int i = 0; i < kPerLane; ++i)
+        seg[kPerLane * l + i] = base + v[l][i];
+    }
+    const int width = std::min(kSegment, k_cols - kSegment * s);
+    for (int q = 0; q < width; ++q) out[kSegment * s + q] = seg[q];
+    const int at = cand.k - 1 - kSegment * s;
+    if (at >= 0 && at < kSegment) clm_at_k[c] = seg[at];
+    carry = seg[kSegment - 1];
+  }
+}
+
+// The oracle: PR 12's schedule, each lane evaluating its own 8 states' log
+// mu in order and storing its prefixes itself.
+float own_lane_segment(const Cand<0>& c, Num<0> sat, int s, int lane,
+                       int k_cols, float (&v)[kPerLane]) {
+  Num<0> run = zero<0>();
+  for (int i = 0; i < kPerLane; ++i) {
+    const int n = kSegment * s + kPerLane * lane + 1 + i;
+    run = add(run, masked_log_mu(c, sat, n, k_cols));
+    v[i] = run.v;
+  }
+  return run.v;
+}
+
+void run_row_oracle(const Rows& rows, int c, int n_rows, int k_cols,
+                    float* bounds, float* clm, float* clm_at_k) {
   const Cand<0> cand = row_candidate(rows, c);
   const Bounds<0> b = rate_bounds(cand);
   bounds[c] = bounds[n_rows + c] = b.lo.v;
@@ -84,7 +145,7 @@ void run_row(const Rows& rows, int c, int n_rows, int k_cols, float* bounds,
     float v[32][kPerLane];
     Num<0> incl[32];
     for (int l = 0; l < 32; ++l)
-      incl[l] = constant<0>(lane_segment(cand, sat, s, l, k_cols, v[l]));
+      incl[l] = constant<0>(own_lane_segment(cand, sat, s, l, k_cols, v[l]));
     hs_scan(incl);
     for (int l = 0; l < 32; ++l) {
       const float below = l == 0 ? -0.0f : incl[l - 1].v;
@@ -106,11 +167,33 @@ namespace {
 @STATS@
 }  // namespace
 
-// chain_stats_kernel<S>'s warp for row c, lane by lane.
+// Each lane's 8 states of segment s: their own log mu, dealt (the kernel)
+// or each lane's own (the oracle).
+void own_states(const Cand<0>& cand, int s, int k_cols, bool dealt,
+                Num<0> (&lp)[32][kPerLane]) {
+  if (!dealt) {
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < kPerLane; ++i)
+        lp[l][i] = own_log_mu(cand, kSegment * s + kPerLane * l + 1 + i);
+    return;
+  }
+  const int count = own_count(cand, s, k_cols);
+  float seg[kSegment];
+  for (int j = 0; j < kSegment; ++j) seg[j] = NAN;  // stale to every read
+  for (int l = 0; l < 32; ++l) deal_own_log_mu(cand, s, l, count, seg);
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < kPerLane; ++i)
+      lp[l][i] = constant<0>(count > 0 ? seg[kPerLane * l + i] : 0.0f);
+}
+
+// chain_stats_kernel<S>'s warp for row c, lane by lane: the kernel's
+// schedule (the own log mu dealt, the walk limited to the row's segments),
+// or with `oracle` PR 12's (each lane its own states, all S segments).
 template <int S>
 void run_row(const Rows& rows, const float* rate, const float* lam_star,
              const float* targets, const float* lam_max_in, float* out,
-             unsigned char* valid, int c, int n_rows, int k_cols, int mode) {
+             unsigned char* valid, int c, int n_rows, int k_cols, int mode,
+             bool oracle) {
   const Cand<0> cand = row_candidate(rows, c);
   Bounds<0> b;
   TailRates tail;
@@ -128,21 +211,21 @@ void run_row(const Rows& rows, const float* rate, const float* lam_star,
   }
   const Num<0> log_lam = dlog(clamp_min(constant<0>(lam), 1e-30f));
   const Num<0> sat = saturated_log_mu(cand);
+  const int walked = oracle ? S : std::min(S, row_segments(cand.k, k_cols));
 
-  static Num<0> lp[32][S][kPerLane];
+  static Num<0> lp[S][32][kPerLane];
   Num<0> carry = zero<0>();
-  for (int s = 0; s < S; ++s) {
+  for (int s = 0; s < walked; ++s) {
+    own_states(cand, s, k_cols, !oracle, lp[s]);
     Num<0> incl[32];
-    for (int l = 0; l < 32; ++l) {
-      const int n0 = kSegment * s + kPerLane * l + 1;
-      run_log_mu(cand, n0, lp[l][s]);
-      incl[l] = run_prefix(cand, log_lam, sat, n0, k_cols, lp[l][s]);
-    }
+    for (int l = 0; l < 32; ++l)
+      incl[l] = run_prefix(cand, log_lam, sat, kSegment * s + kPerLane * l + 1,
+                           k_cols, lp[s][l]);
     hs_scan(incl);
     Num<0> last[32];
     for (int l = 0; l < 32; ++l)
       last[l] = finish_prefix(add(carry, l == 0 ? zero<0>() : incl[l - 1]),
-                              lp[l][s]);
+                              lp[s][l]);
     carry = last[31];
   }
 
@@ -150,15 +233,15 @@ void run_row(const Rows& rows, const float* rate, const float* lam_star,
   Num<0> ws[32];
   for (int l = 0; l < 32; ++l) {
     m_of[l] = -INFINITY;
-    for (int s = 0; s < S; ++s)
-      m_of[l] = max_nan(m_of[l], run_max(l == 0 && s == 0, lp[l][s]));
+    for (int s = 0; s < walked; ++s)
+      m_of[l] = max_nan(m_of[l], run_max(l == 0 && s == 0, lp[s][l]));
   }
   float m = max32(m_of);
   m = fabsf(m) == INFINITY ? 0.0f : m;
   for (int l = 0; l < 32; ++l) {
     ws[l] = zero<0>();
-    for (int s = 0; s < S; ++s)
-      ws[l] = add(ws[l], run_weights(l == 0 && s == 0, lp[l][s], m));
+    for (int s = 0; s < walked; ++s)
+      ws[l] = add(ws[l], run_weights(l == 0 && s == 0, lp[s][l], m));
   }
   const Num<0> logz = log_partition(sum32(ws), m);
 
@@ -167,19 +250,25 @@ void run_row(const Rows& rows, const float* rate, const float* lam_star,
   for (int l = 0; l < 32; ++l) {
     p_at_k[l] = constant<0>(NAN);
     mo[l] = moments_zero<0>();
-    for (int s = 0; s < S; ++s)
+    for (int s = 0; s < walked; ++s)
       mo[l] = add(mo[l], run_moments(cand, l == 0 && s == 0,
                                      kSegment * s + kPerLane * l + 1,
-                                     lp[l][s], logz, &p_at_k[l]));
+                                     lp[s][l], logz, &p_at_k[l]));
   }
   const Moments<0> total = sum32(mo);
   Num<0> p_block = p_at_k[holder_lane(cand.k)];
   if (cand.k < 0 || cand.k > k_cols) p_block = constant<0>(NAN);
   const Stats<0> st = chain_stats(cand, constant<0>(lam), total, p_block);
-  if (mode == 0)
-    tail_out(cand, tail, st, out, c, n_rows);
-  else
-    analyze_out(cand, b, lam, st, out, c, n_rows);
+  if (mode == 0) {
+    float row[kTailRows];
+    tail_rows(cand, tail, st, row);
+    for (int l = 0; l < kTailRows; ++l) out[l * n_rows + c] = row_of(row, l);
+  } else {
+    float row[kAnalyzeRows];
+    analyze_rows(cand, b, lam, st, row);
+    for (int l = 0; l < kAnalyzeRows; ++l)
+      out[l * n_rows + c] = row_of(row, l);
+  }
 }
 
 // chain_jacobian_kernel's block, thread by thread between its barriers.
@@ -195,7 +284,7 @@ void run_block(const float* x, const float* env, float* out) {
   // The prefix sum.
   static Dual incl[kThreads];
   for (int g = 0; g < kThreads; ++g) {
-    run_log_mu(c, kPer * g + 1, lp[g]);
+    for (int i = 0; i < kPer; ++i) lp[g][i] = own_log_mu(c, kPer * g + 1 + i);
     incl[g] = run_prefix(c, log_lam, sat, kPer * g + 1, kMaxStates, lp[g]);
   }
   for (int w = 0; w < kWarps; ++w) hs_scan(incl + 32 * w);
@@ -258,22 +347,25 @@ void run_block(const float* x, const float* env, float* out) {
 template <int S>
 void run_rows(const Rows& rows, const float* rate, const float* lam_star,
               const float* targets, const float* lam_max, float* out,
-              unsigned char* valid, int n_rows, int k_cols, int mode) {
+              unsigned char* valid, int n_rows, int k_cols, int mode,
+              bool oracle) {
   for (int c = 0; c < n_rows; ++c)
     run_row<S>(rows, rate, lam_star, targets, lam_max, out, valid, c,
-               n_rows, k_cols, mode);
+               n_rows, k_cols, mode, oracle);
 }
 }  // namespace stats_h
 
 extern "C" {
 
+// schedule 0: the kernel's; 1: the oracle, PR 12's.
 void host_setup(const float* alpha, const float* beta, const float* gamma,
                 const float* in, const float* out_tokens, const int* batch,
                 const int* k, float* bounds, float* clm, float* clm_at_k,
-                int n_rows, int k_cols) {
+                int n_rows, int k_cols, int schedule) {
   const chain::Rows rows = {alpha, beta, gamma, in, out_tokens, batch, k};
   for (int c = 0; c < n_rows; ++c)
-    setup_h::run_row(rows, c, n_rows, k_cols, bounds, clm, clm_at_k);
+    (schedule ? setup_h::run_row_oracle : setup_h::run_row)(
+        rows, c, n_rows, k_cols, bounds, clm, clm_at_k);
 }
 
 void host_stats(const float* alpha, const float* beta, const float* gamma,
@@ -281,20 +373,21 @@ void host_stats(const float* alpha, const float* beta, const float* gamma,
                 const int* k, const float* rate, const float* lam_star,
                 const float* targets, const float* lam_max, float* out,
                 unsigned char* valid, int n_rows, int k_cols, int mode,
-                int segments) {
+                int segments, int schedule) {
   const chain::Rows rows = {alpha, beta, gamma, in, out_tokens, batch, k};
+  const bool oracle = schedule != 0;
   if (segments == 1)
     stats_h::run_rows<1>(rows, rate, lam_star, targets, lam_max, out, valid,
-                         n_rows, k_cols, mode);
+                         n_rows, k_cols, mode, oracle);
   else if (segments == 2)
     stats_h::run_rows<2>(rows, rate, lam_star, targets, lam_max, out, valid,
-                         n_rows, k_cols, mode);
+                         n_rows, k_cols, mode, oracle);
   else if (segments == 4)
     stats_h::run_rows<4>(rows, rate, lam_star, targets, lam_max, out, valid,
-                         n_rows, k_cols, mode);
+                         n_rows, k_cols, mode, oracle);
   else
     stats_h::run_rows<8>(rows, rate, lam_star, targets, lam_max, out, valid,
-                         n_rows, k_cols, mode);
+                         n_rows, k_cols, mode, oracle);
 }
 
 void host_jacobian(const float* x, const float* env, float* out) {
@@ -344,8 +437,8 @@ def build(tmp: Path) -> ctypes.CDLL:
                    check=True, capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    so.host_setup.argtypes = [ptr] * 10 + [i32] * 2
-    so.host_stats.argtypes = [ptr] * 13 + [i32] * 4
+    so.host_setup.argtypes = [ptr] * 10 + [i32] * 3
+    so.host_stats.argtypes = [ptr] * 13 + [i32] * 5
     so.host_jacobian.argtypes = [ptr] * 3
     so.host_rule.argtypes = [i32, ptr, ptr, ptr]
     for fn in (so.host_setup, so.host_stats, so.host_jacobian, so.host_rule):

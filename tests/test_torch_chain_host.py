@@ -18,7 +18,11 @@ resp - serv) at 2e-3 of the larger term, and the prefix sums at 2e-3 of the
 sum of their terms' magnitudes (a sum's rounding error scales with its
 terms, not with its value, which crosses zero). Integer and boolean
 outputs are equal. A row's bits are the same alone and inside a batch, at
-any position and at a wider k_cols. Needs ``g++``, no card:
+any position and at a wider k_cols. The kernels' schedules give the bits
+of PR 12's, kept in ``tests/chain_host.py`` as the oracle, at max batch
+1, 2, 32, 33, 96, 256, 257 and above k, k 1, 255, 256, 257 and k_cols,
+k_cols 256 and 2048, and on the seeded populations. Needs ``g++``, no
+card:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_chain_host.py -q
 """
@@ -93,21 +97,25 @@ def cases():
             for n in ROWS for k_cols in K_COLS]
 
 
-def host_setup(so, fields, k_cols):
+def host_setup(so, fields, k_cols, oracle=False):
+    """The setup kernel's outputs in its schedule, or with ``oracle`` in
+    PR 12's (each lane its own states' log mu)."""
     n = len(fields["k"])
     bounds = np.full((4, n), np.nan, np.float32)
     clm = np.full((n, k_cols), np.nan, np.float32)
     at_k = np.full(n, np.nan, np.float32)
     arrays = field_arrays(fields)
     so.host_setup(*map(as_ptr, arrays), as_ptr(bounds), as_ptr(clm),
-                  as_ptr(at_k), n, k_cols)
+                  as_ptr(at_k), n, k_cols, int(oracle))
     return bounds, clm, at_k
 
 
 def host_stats(so, fields, k_cols, mode, rate=None, lam_star=None,
-               targets=None, lam_max=None):
+               targets=None, lam_max=None, oracle=False):
     """The kernel's rows (:data:`chain_stats.TAIL_KEYS` or ``ANALYZE_KEYS``)
-    as a dict, and for mode 1 ``valid``."""
+    as a dict, and for mode 1 ``valid``: in the kernel's schedule, or with
+    ``oracle`` in PR 12's (each lane its own states' log mu, every segment
+    of the instantiation walked)."""
     n = len(fields["k"])
     keys = chain_stats.TAIL_KEYS if mode == 0 else chain_stats.ANALYZE_KEYS
     out = np.full((len(keys), n), np.nan, np.float32)
@@ -116,7 +124,7 @@ def host_stats(so, fields, k_cols, mode, rate=None, lam_star=None,
               for a in (rate, lam_star, targets, lam_max)]
     so.host_stats(*map(as_ptr, field_arrays(fields)), *map(as_ptr, inputs),
                   as_ptr(out), as_ptr(valid), n, k_cols, mode,
-                  segments_for(k_cols))
+                  segments_for(k_cols), int(oracle))
     got = dict(zip(keys, out))
     if mode == 1:
         got["valid"] = valid.astype(bool)
@@ -337,6 +345,61 @@ def test_a_rows_bits_depend_on_the_row_alone(host, k_cols, wider):
             np.testing.assert_array_equal(t1[key][0], tail[key][i])
         for key in ana:
             np.testing.assert_array_equal(a1[key][0], ana[key][i])
+
+
+def assert_bits(got, want, what):
+    """Bit for bit: floats by their 32-bit patterns (so -0.0 is not 0.0 and
+    every NaN's bits count), the rest by value."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype == np.float32:
+        got, want = got.view(np.uint32), want.view(np.uint32)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def assert_schedules_equal(so, fields, targets, k_cols, what):
+    """The kernels' schedules (the own log mu dealt across the lanes, the
+    statistics' walk limited to each row's segments) against PR 12's (each
+    lane its own states, every segment walked): setup, tail and analyze
+    bit for bit."""
+    got, want = (host_setup(so, fields, k_cols, oracle=o)
+                 for o in (False, True))
+    for name, g, w in zip(("bounds", "clm", "clm_at_k"), got, want):
+        assert_bits(g, w, f"{what} setup {name}")
+    bounds = want[0]
+    tail_in = dict(lam_star=np.stack([bounds[0] * 20, bounds[2] * 0.5]),
+                   targets=np.stack(targets), lam_max=bounds[2])
+    rates = np.random.default_rng(k_cols).uniform(
+        0.1, 50.0, len(fields["k"])).astype(np.float32)
+    for mode, kw in ((0, tail_in), (1, dict(rate=rates))):
+        got, want = (host_stats(so, fields, k_cols, mode, oracle=o, **kw)
+                     for o in (False, True))
+        for key in want:
+            assert_bits(got[key], want[key], f"{what} mode {mode} {key}")
+
+
+EDGE_KS = (1, 255, 256, 257)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 32, 33, 96, 256, 257, "above k"])
+@pytest.mark.parametrize("k_cols", [256, 2048])
+def test_the_schedules_equal_pr12s_at_the_edges(host, k_cols, batch):
+    """Every k of EDGE_KS and k_cols (257 past k_cols 256), three seeded
+    rows each, at max batch B or at k + 1 (every state within k its own):
+    the kernels' schedules give PR 12's bits."""
+    ks = np.repeat(np.array([*EDGE_KS, k_cols]), 3)
+    fields, targets = population(len(ks), 40 + k_cols // 256, k_cols)
+    fields["k"] = ks.astype(np.int32)
+    fields["max_batch"] = (ks + 1 if batch == "above k"
+                           else np.full(len(ks), batch)).astype(np.int32)
+    assert_schedules_equal(host, fields, targets, k_cols,
+                           f"B={batch} k_cols={k_cols}")
+
+
+@pytest.mark.parametrize("n,k_cols,seed", cases())
+def test_the_schedules_equal_pr12s_on_the_populations(host, n, k_cols, seed):
+    fields, targets = population(n, seed + 4, k_cols)
+    assert_schedules_equal(host, fields, targets, k_cols,
+                           f"C={n} k_cols={k_cols}")
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -14,9 +14,11 @@ kernel and its plain version on the same CUDA tensors, held by
 ``chip_smoke``'s own checks (rtol 2e-3; the prefix sums at 2e-3 of the sum
 of their terms' magnitudes; ``valid`` equal). ``size_batch`` makes three
 launches (setup, sizing, statistics) and ``analyze_batch`` one; a row's
-bits are the same alone and inside a batch; the tuner's kernel agrees with
-``jacfwd``; the wrappers refuse what the kernels
-do not take, counting no launch.
+bits are the same alone and inside a batch; ``analyze_batch`` at k_cols
+2048 with k = 480 gives the bits of k_cols 512; a max batch of 300 (its
+own log mu over two segments) holds; the tuner's kernel agrees with
+``jacfwd``; the wrappers refuse what the kernels do not take, counting no
+launch.
 """
 
 import pytest
@@ -99,6 +101,48 @@ def test_a_rows_bits_depend_on_the_row_alone(cuda, k_cols, wider):
         alone = qm.analyze_batch(rate[i:i + 1], one, k_cols=k_cols)
         for key in alone:
             assert torch.equal(alone[key], analyzed[key][i:i + 1]), (i, key)
+
+
+def test_analyze_walks_only_the_rows_segments(cuda):
+    """k = 480 far below k_cols 2048: the kernel walks the row's 2 segments
+    of 8, and gives the bits of the same rows at k_cols 512."""
+    cand, _, rate = chip_smoke.chain_inputs(512, 34, 512)
+    cand = cand._replace(k=torch.full_like(cand.k, 480))
+    wide = qm.analyze_batch(rate, cand, k_cols=2048)
+    narrow = qm.analyze_batch(rate, cand, k_cols=512)
+    for key in wide:
+        assert torch.equal(wide[key], narrow[key]), key
+    chip_smoke.check_chain(wide, chain_stats.analyze_plain(rate, cand, 2048),
+                           ["valid", *chain_stats.ANALYZE_KEYS], "analyze",
+                           chip_smoke.Errors())
+
+
+@pytest.mark.parametrize("k_cols", [512, 1024])
+def test_a_batch_above_a_segment(cuda, k_cols):
+    """B = 300: the states below B that need their own log mu span two
+    segments. Each kernel against its plain version, and a row's bits the
+    same alone."""
+    err = chip_smoke.Errors()
+    cand, t, rate = chip_smoke.chain_inputs(64, 35, k_cols)
+    cand = cand._replace(max_batch=torch.full_like(cand.max_batch, 300))
+    plain = chain_setup.chain_setup_plain(cand, k_cols)
+    chip_smoke.check_setup(chain_setup.launch(cand, k_cols), plain, cand,
+                           k_cols, "setup", err)
+    lam_star = sizing_kernel.sizing_bisection_plain(
+        plain.clm, plain.clm_at_k, cand, t[:2], plain.lo0, plain.hi0)
+    args = (cand, lam_star, t, plain.bounds[2], k_cols)
+    chip_smoke.check_chain(chain_stats.size_tail(*args),
+                           chain_stats.size_tail_plain(*args),
+                           chain_stats.TAIL_KEYS, "tail", err)
+    analyzed = chain_stats.analyze(rate, cand, k_cols)
+    chip_smoke.check_chain(analyzed,
+                           chain_stats.analyze_plain(rate, cand, k_cols),
+                           ["valid", *chain_stats.ANALYZE_KEYS], "analyze",
+                           err)
+    one = qm.CandidateBatch(*(f[5:6] for f in cand))
+    alone = chain_stats.analyze(rate[5:6], one, k_cols)
+    for key in alone:
+        assert torch.equal(alone[key], analyzed[key][5:6]), key
 
 
 def test_the_jacobian_kernel_matches_jacfwd(cuda):

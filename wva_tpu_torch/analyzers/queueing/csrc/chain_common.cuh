@@ -346,10 +346,42 @@ __device__ __forceinline__ Stats<T> chain_stats(const Cand<T>& c, Num<T> lam,
 // The C-row kernels' layout (chain_setup.cu, and chain_stats.cu without
 // tangents): one warp a row, kRowsPerBlock rows a block, the row's states in
 // segments of kSegment, lane l holding the kPerLane consecutive states
-// kSegment s + kPerLane l + 1 .. of segment s.
+// kSegment s + kPerLane l + 1 .. of segment s in every sum. The states that
+// need their own log mu are dealt across the warp instead: state kSegment s
+// + j + 1 to lane j mod 32, each value handed to its holder through shared
+// memory (a segment's kSegment floats a row).
 constexpr int kSegment = 256;  // states a segment: 32 lanes x kPerLane
 constexpr int kPerLane = 8;
 constexpr int kRowsPerBlock = 8;
+
+// How many states of segment s need their own log mu: kSegment s + 1 ..
+// min(B - 1, k, last), none past the segment.
+__device__ __forceinline__ int own_count(const Cand<0>& c, int s, int last) {
+  int hi = c.batch - 1;
+  if (c.k < hi) hi = c.k;
+  if (last < hi) hi = last;
+  hi -= kSegment * s;
+  return hi < 0 ? 0 : (hi > kSegment ? kSegment : hi);
+}
+
+// The lane's dealt share of segment s: own[j] = log mu of state kSegment s
+// + j + 1 for j = lane, lane + 32, .. below `count` (own_log_mu, on another
+// lane than the state's holder). From `count` on own[] holds stale values:
+// those states are at or above B or past k or `last`, where `masked` takes
+// the saturated value or +1e30 and never reads their own.
+__device__ __forceinline__ void deal_own_log_mu(const Cand<0>& c, int s,
+                                                int lane, int count,
+                                                float* own) {
+  for (int j = lane; j < count; j += 32)
+    own[j] = own_log_mu(c, kSegment * s + j + 1).v;
+}
+
+// The segments a row walks: those that hold its states 1 .. min(k, last),
+// at least one. The states past them add exact zeros to every sum.
+__device__ __forceinline__ int row_segments(int k, int last) {
+  const int n = k < last ? k : last;
+  return n < 1 ? 1 : (n + kSegment - 1) / kSegment;
+}
 
 // The rows' candidate fields, each [C].
 struct Rows {

@@ -18,25 +18,42 @@
 //   clm_at_k [C]: clm[c, k - 1], NaN where k is outside 1..k_cols (the
 //     plain version's gather raises there).
 //
-// Design. One warp a row, 8 rows a block, no shared memory and no barrier.
-// The row's chain is walked in segments of 256 states: lane l holds the 8
-// consecutive states 256 s + 8 l + 1 .. + 8 of segment s, computes their
-// log mu, and sums them in order; a Hillis-Steele scan of the 32 lanes'
-// sums (shfl_up, lower + upper) gives each lane the sum of the lanes below
-// it; a state's prefix is (carry + the lanes below) + the lane's own
-// running sum, and the carry into the next segment is the prefix at the
-// segment's last state (lane 31's eighth). Each sum's order is fixed by
-// the source and by nothing else: a row's bits do not depend on C, on its
-// position, on the other rows, or on k_cols once k_cols covers its k.
-// Every state n >= B has the same mu (its eff is B), so a row evaluates
-// log mu once for all of them and once for each state below B.
+// Design. One warp a row, 8 rows a block, a segment's 256 floats a row in
+// shared memory (8 KiB a block), no barrier but the warp's own. The row's
+// chain is walked in segments of 256 states; in each:
+//   - the states that need their own log mu (below B, within k and k_cols:
+//     a division and a log each) are dealt across the warp, state 256 s + j
+//     + 1 to lane j mod 32, into the row's shared segment. At B = 96 each
+//     lane evaluates 3 of them, where lane l once evaluated its own 8 and
+//     lanes 12-31 waited for lanes 0-11;
+//   - lane l reads back its 8 consecutive states 256 s + 8 l + 1 .. + 8 (two
+//     16-byte loads) and sums their masked log mu in order; every state n
+//     >= B has the same mu (its eff is B), so the row evaluates log mu once
+//     for all of them;
+//   - a Hillis-Steele scan of the 32 lanes' sums (shfl_up, lower + upper)
+//     gives each lane the sum of the lanes below it; a state's prefix is
+//     (carry + the lanes below) + the lane's own running sum, and the carry
+//     into the next segment is the prefix at the segment's last state;
+//   - the 256 prefixes go back to the shared segment and out to clm with
+//     neighbouring lanes on neighbouring addresses (128 contiguous bytes a
+//     warp instruction, where each lane's 8 consecutive prefixes took 8
+//     instructions of 32 sectors each; 16-byte stores measured no faster on
+//     the H100, PERF.md), and clm_at_k from the same stage.
+// Each sum's order is fixed by the source and by nothing else, and a
+// state's log mu is the same operations on whichever lane: a row's bits do
+// not depend on C, on its position, on the other rows, or on k_cols once
+// k_cols covers its k, and equal those of the schedule in which each lane
+// evaluated its own states (tests/chain_host.py keeps that one as the
+// oracle).
 //
 // What bounds it on the H100. The bytes: clm is written once, C * k_cols *
 // 4 bytes (4 MiB at the fleet tick's C=2048, k_cols=512: ~1.3 us at 3.35
 // TB/s), and the inputs are read once. The operations: a division and a
 // log a state below B, an add a state above it. The chain of one row: the
-// candidate's scalars, one state's log mu, 8 adds, the 5-step scan and the
-// carry through k_cols / 256 segments.
+// candidate's scalars, ceil((min(B, k + 1) - 1) / 32) states' log mu on a
+// lane, 8 adds, the 5-step scan and the carry through k_cols / 256
+// segments; at a few rows (the headline world's C = 8) that chain and the
+// launch are all there is.
 //
 // Rounding. Built with -fmad=false: each operation rounds once, as the
 // plain version's do. The plain version's cumsum takes another order (and
@@ -55,16 +72,17 @@ namespace {
 using namespace chain;
 
 // The lane's 8 states of segment s: v[i] the sum of their masked log mu up
-// to and including state 256 s + 8 lane + 1 + i, in order. Returns the
-// lane's total.
+// to and including state 256 s + 8 lane + 1 + i, in order, from their own
+// log mu as dealt (deal_own_log_mu). Returns the lane's total.
 __device__ __forceinline__ float lane_segment(const Cand<0>& c, Num<0> sat,
                                               int s, int lane, int k_cols,
+                                              const Num<0> (&own)[kPerLane],
                                               float (&v)[kPerLane]) {
   Num<0> run = zero<0>();
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
     const int n = kSegment * s + kPerLane * lane + 1 + i;
-    run = add(run, masked_log_mu(c, sat, n, k_cols));
+    run = add(run, masked(c, sat, own[i], n, k_cols));
     v[i] = run.v;
   }
   return run.v;
@@ -78,9 +96,13 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
     chain_setup_kernel(Rows rows, float* __restrict__ bounds,
                        float* __restrict__ clm, float* __restrict__ clm_at_k,
                        int n_rows, int k_cols) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  // Each row's segment: first its dealt own log mu, then its prefixes.
+  __shared__ __align__(16) float stage[kRowsPerBlock][kSegment];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kRowsPerBlock + warp;
   if (c >= n_rows) return;
+  float* seg = stage[warp];
+  float4* seg4 = reinterpret_cast<float4*>(seg);
   const Cand<0> cand = row_candidate(rows, c);
   const Bounds<0> b = rate_bounds(cand);
   if (lane == 0) {
@@ -93,8 +115,23 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   float carry = -0.0f;
   const int segments = (k_cols + kSegment - 1) / kSegment;
   for (int s = 0; s < segments; ++s) {
+    const int count = own_count(cand, s, k_cols);
+    Num<0> own[kPerLane];
+    if (count > 0) {
+      deal_own_log_mu(cand, s, lane, count, seg);
+      __syncwarp();
+      const float4 lo = seg4[2 * lane], hi = seg4[2 * lane + 1];
+      const float dealt[kPerLane] = {lo.x, lo.y, lo.z, lo.w,
+                                     hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) own[i] = constant<0>(dealt[i]);
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) own[i] = constant<0>(0.0f);
+    }
     float v[kPerLane];
-    float incl = lane_segment(cand, sat, s, lane, k_cols, v);
+    float incl = lane_segment(cand, sat, s, lane, k_cols, own, v);
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float lower = __shfl_up_sync(kAll, incl, off);
@@ -103,15 +140,17 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
     float below = __shfl_up_sync(kAll, incl, 1);
     if (lane == 0) below = -0.0f;
     const float base = carry + below;
-    const int first = kSegment * s + kPerLane * lane + 1;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      v[i] = base + v[i];
-      const int n = first + i;
-      if (n <= k_cols) out[n - 1] = v[i];
-      if (n == cand.k) clm_at_k[c] = v[i];
-    }
+    for (int i = 0; i < kPerLane; ++i) v[i] = base + v[i];
+    seg4[2 * lane] = make_float4(v[0], v[1], v[2], v[3]);
+    seg4[2 * lane + 1] = make_float4(v[4], v[5], v[6], v[7]);
+    __syncwarp();
+    const int width = min(kSegment, k_cols - kSegment * s);
+    for (int q = lane; q < width; q += 32) out[kSegment * s + q] = seg[q];
+    const int at = cand.k - 1 - kSegment * s;
+    if (lane == 0 && at >= 0 && at < kSegment) clm_at_k[c] = seg[at];
     carry = __shfl_sync(kAll, v[kPerLane - 1], 31);
+    __syncwarp();
   }
 }
 

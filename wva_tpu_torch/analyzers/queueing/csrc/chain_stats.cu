@@ -46,20 +46,32 @@
 //     analyzed (req/s), rho; and valid [C] (bool): the rate was inside the
 //     bounds.
 //
-// Design, T = 0. One warp a row, 8 rows a block, no shared memory and no
-// barrier (as the sizing kernel). The row's states are held in
-// registers in segments of 256: lane l holds states 256 s + 8 l + 1 .. + 8
-// of segment s (S segments, S = 1, 2, 4 or 8 a template parameter, the
-// fewest that cover k_cols). The prefix sum: each lane's 8 states in
-// order, a Hillis-Steele scan of the lanes' sums (shfl_up, lower + upper),
-// (carry + the lanes below) + the lane's own, the carry into the next
-// segment the unclamped prefix at the segment's last state. Each reduction
-// (the maximum, sum w, the two moments) runs over a lane's states in
-// segment order (lane 0 takes state 0 first), then an xor butterfly (own +
-// other; every lane ends with the same bits, as float addition commutes).
-// So a row's bits depend on nothing but the row: not on C, its position,
-// the other rows, or S and k_cols once they cover its k (the states past k
-// add exact zeros).
+// Design, T = 0. One warp a row, 8 rows a block, a segment's 256 floats a
+// row in shared memory (8 KiB a block), no barrier but the warp's own. The
+// row's states are held in registers in segments of 256: lane l holds
+// states 256 s + 8 l + 1 .. + 8 of segment s. The row walks only the
+// segments that hold its states 1 .. min(k, k_cols), at least one, and at
+// most S (1, 2, 4 or 8, a template parameter, the fewest that cover
+// k_cols): at analyze_batch's k_cols 2048 with k = 480, 2 of 8. In each
+// segment, the states that need their own log mu (below B and within k: a
+// division and a log each) are dealt across the warp, state 256 s + j + 1
+// to lane j mod 32, and handed to their holders through the row's shared
+// segment (3 a lane at B = 96, where lane l once evaluated its own 8). The
+// prefix sum: each lane's 8 states in order, a Hillis-Steele scan of the
+// lanes' sums (shfl_up, lower + upper), (carry + the lanes below) + the
+// lane's own, the carry into the next segment the unclamped prefix at the
+// segment's last state. Each reduction (the maximum, sum w, the two
+// moments) runs over a lane's states in segment order (lane 0 takes state
+// 0 first), then an xor butterfly (own + other; every lane ends with the
+// same bits, as float addition commutes). Every lane then has the row's
+// statistics, and lanes 0-8 (the tail) or 0-9 (analyze) store one output
+// row each. So a row's bits depend on nothing but the row: not on C, its
+// position, the other rows, or S and k_cols once they cover its k. The
+// states past k that a wider walk would visit end at logp = -1e30 (below
+// the maximum, at least state 0's 0) and add exact zeros to sums that are
+// already +0 or more, so the walk's limit leaves every bit as it was
+// (tests/chain_host.py keeps the full walk, with each lane evaluating its
+// own states, as the oracle).
 //
 // Design, T = 3. One block of kThreads = 512 threads, kPer = 4 states a
 // thread: thread g holds states kPer g + 1 .. kPer g + kPer, and thread 0
@@ -87,7 +99,10 @@
 // ~170 with the tangents, jacobian_kernel.CHAIN_OPS), ~0.34 us. T = 0 at
 // C rows: the bytes (the inputs and the outputs once, ~80 bytes a row) and
 // the operations (two exps and ~20 float operations a state, a division
-// and a log a state below B) against the same chain without tangents.
+// and a log a state below B) against the same chain without tangents. A
+// row's own chain (ceil((min(B, k + 1) - 1) / 32) log mu on a lane, then
+// per walked segment a 5-step scan and three 5-step butterflies) is what a
+// launch of a few rows takes.
 //
 // Rounding. Built with -fmad=false: each operation rounds once, as the
 // plain versions' do. Their sums take other orders (and on the CPU cumsum
@@ -132,15 +147,6 @@ __device__ __forceinline__ Dual clip_rate(float lam_env, Dual mu_1,
                                           Dual mu_b) {
   return minimum(maximum(constant<3>(lam_env), scale(mu_1, kEpsilon)),
                  scale(mu_b, kOneLessEpsilon));
-}
-
-// A thread's run of P states from n0: each state's own log mu (own_log_mu),
-// which needs no rate.
-template <int T, int P>
-__device__ __forceinline__ void run_log_mu(const Cand<T>& c, int n0,
-                                           Num<T> (&lp)[P]) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) lp[i] = own_log_mu(c, n0 + i);
 }
 
 // The run's prefix, in place of its own log mu: lp[i] the sum of the log
@@ -266,27 +272,36 @@ __device__ __forceinline__ AnalyzeRate analyze_rate(float rate_per_s,
           req >= b.lo.v && req <= b.hi.v};
 }
 
-// The nine rows of the sizing path's result at column c of C.
-__device__ __forceinline__ void tail_out(const Cand<0>& cand, TailRates r,
-                                         const Stats<0>& s, float* out, int c,
-                                         int n_rows) {
+// The nine rows of the sizing path's result.
+__device__ __forceinline__ void tail_rows(const Cand<0>& cand, TailRates r,
+                                          const Stats<0>& s,
+                                          float (&row)[kTailRows]) {
   const float x = s.throughput.v * 1000.0f;
-  const float row[kTailRows] = {
+  const float rows[kTailRows] = {
       r.ttft * 1000.0f, r.itl * 1000.0f, r.tps * 1000.0f, r.best * 1000.0f,
       s.ttft.v, s.itl.v, x * cand.out, x,
       clamp01(s.in_servers.v / static_cast<float>(cand.batch))};
-  for (int i = 0; i < kTailRows; ++i) out[i * n_rows + c] = row[i];
+  for (int i = 0; i < kTailRows; ++i) row[i] = rows[i];
 }
 
-// The ten rows of analyze_batch's result at column c of C.
-__device__ __forceinline__ void analyze_out(const Cand<0>& cand, Bounds<0> b,
-                                            float lam, const Stats<0>& s,
-                                            float* out, int c, int n_rows) {
-  const float row[kAnalyzeRows] = {
+// The ten rows of analyze_batch's result.
+__device__ __forceinline__ void analyze_rows(const Cand<0>& cand, Bounds<0> b,
+                                             float lam, const Stats<0>& s,
+                                             float (&row)[kAnalyzeRows]) {
+  const float rows[kAnalyzeRows] = {
       s.throughput.v * 1000.0f, s.resp.v, s.wait.v, s.in_servers.v,
       s.prefill.v, s.itl.v, s.ttft.v, b.hi.v * 1000.0f, lam * 1000.0f,
       clamp01(s.in_servers.v / static_cast<float>(cand.batch))};
-  for (int i = 0; i < kAnalyzeRows; ++i) out[i * n_rows + c] = row[i];
+  for (int i = 0; i < kAnalyzeRows; ++i) row[i] = rows[i];
+}
+
+// Output row `lane` of `row` (0 past it): the value lane `lane` stores.
+template <int R>
+__device__ __forceinline__ float row_of(const float (&row)[R], int lane) {
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) v = lane == i ? row[i] : v;
+  return v;
 }
 
 // The lane that holds state k in the T = 0 layout (state 0: lane 0).
@@ -353,18 +368,24 @@ __device__ __forceinline__ float warp_max(float m) {
 }
 
 // ---- T = 0: one warp a row
+// (At least one block an SM: with the thread count alone ptxas held the
+// S = 4 instantiation to 64 registers and spilled 32 bytes.)
 
 template <int S>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+__global__ void __launch_bounds__(32 * kRowsPerBlock, 1)
     chain_stats_kernel(Rows rows, const float* __restrict__ rate,
                        const float* __restrict__ lam_star,
                        const float* __restrict__ targets,
                        const float* __restrict__ lam_max_in,
                        float* __restrict__ out, bool* __restrict__ valid,
                        int n_rows, int k_cols, int mode) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  // Each row's segment of dealt own log mu.
+  __shared__ __align__(16) float dealt_own[kRowsPerBlock][kSegment];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kRowsPerBlock + warp;
   if (c >= n_rows) return;
+  float* seg = dealt_own[warp];
+  const float4* seg4 = reinterpret_cast<const float4*>(seg);
   const Cand<0> cand = row_candidate(rows, c);
   Bounds<0> b;
   TailRates tail;
@@ -382,14 +403,29 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   }
   const Num<0> log_lam = dlog(clamp_min(constant<0>(lam), 1e-30f));
   const Num<0> sat = saturated_log_mu(cand);
+  const int walked = row_segments(cand.k, k_cols);
 
   // The prefix sum, segment by segment.
   Num<0> lp[S][kPerLane];
   Num<0> carry = zero<0>();
 #pragma unroll
   for (int s = 0; s < S; ++s) {
+    if (s >= walked) break;
     const int n0 = kSegment * s + kPerLane * lane + 1;
-    run_log_mu(cand, n0, lp[s]);
+    const int count = own_count(cand, s, k_cols);
+    if (count > 0) {
+      deal_own_log_mu(cand, s, lane, count, seg);
+      __syncwarp();
+      const float4 lo = seg4[2 * lane], hi = seg4[2 * lane + 1];
+      const float dealt[kPerLane] = {lo.x, lo.y, lo.z, lo.w,
+                                     hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) lp[s][i] = constant<0>(dealt[i]);
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) lp[s][i] = constant<0>(0.0f);
+    }
     const Num<0> incl =
         warp_scan(run_prefix(cand, log_lam, sat, n0, k_cols, lp[s]), lane);
     Num<0> below = shfl_up(incl, 1);
@@ -401,13 +437,14 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   float m = -INFINITY;
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    m = max_nan(m, run_max(lane == 0 && s == 0, lp[s]));
+    if (s < walked) m = max_nan(m, run_max(lane == 0 && s == 0, lp[s]));
   m = warp_max(m);
   m = fabsf(m) == INFINITY ? 0.0f : m;
   Num<0> ws = zero<0>();
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    ws = add(ws, run_weights(lane == 0 && s == 0, lp[s], m));
+    if (s < walked)
+      ws = add(ws, run_weights(lane == 0 && s == 0, lp[s], m));
   const Num<0> logz = log_partition(warp_sum(ws), m);
 
   // The moments and p_block.
@@ -415,19 +452,24 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   Moments<0> mo = moments_zero<0>();
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    mo = add(mo, run_moments(cand, lane == 0 && s == 0,
-                             kSegment * s + kPerLane * lane + 1, lp[s], logz,
-                             &p_at_k));
+    if (s < walked)
+      mo = add(mo, run_moments(cand, lane == 0 && s == 0,
+                               kSegment * s + kPerLane * lane + 1, lp[s],
+                               logz, &p_at_k));
   mo = warp_sum(mo);
   Num<0> p_block = shfl(p_at_k, holder_lane(cand.k));
   if (cand.k < 0 || cand.k > k_cols) p_block = constant<0>(NAN);
 
-  if (lane == 0) {
-    const Stats<0> st = chain_stats(cand, constant<0>(lam), mo, p_block);
-    if (mode == 0)
-      tail_out(cand, tail, st, out, c, n_rows);
-    else
-      analyze_out(cand, b, lam, st, out, c, n_rows);
+  // Every lane has the statistics; lane i stores output row i.
+  const Stats<0> st = chain_stats(cand, constant<0>(lam), mo, p_block);
+  if (mode == 0) {
+    float row[kTailRows];
+    tail_rows(cand, tail, st, row);
+    if (lane < kTailRows) out[lane * n_rows + c] = row_of(row, lane);
+  } else {
+    float row[kAnalyzeRows];
+    analyze_rows(cand, b, lam, st, row);
+    if (lane < kAnalyzeRows) out[lane * n_rows + c] = row_of(row, lane);
   }
 }
 
