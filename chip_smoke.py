@@ -154,8 +154,23 @@ Phases (any failure raises and the script exits non-zero):
    the CPU: tests/goldens/make_shard_trace.py's (a 3-shard plane, one shard
    crashed) and make_federation_trace.py's (three regions, one dark),
    restated below. Every cycle's decisions must be equal.
-9. Print one JSON line describing every kernel of the path.
-10. Print ``{"ok": true, "device": {...}}`` as the last line.
+9. Install the port as a user would and run it outside the repository:
+   build a wheel from a copy of ``pyproject.toml``, ``README.md`` and both
+   packages (``pip wheel --no-deps --no-build-isolation --no-index``),
+   install it with ``pip install --target`` into a temporary directory,
+   and start a copy of this script there with only that install on
+   ``PYTHONPATH`` and a fresh ``XDG_CACHE_HOME``. It builds the five
+   libraries and runs every kernel entry on fixed seeded inputs
+   (``size_batch`` at C=8, k_cols 512; ``analyze_batch`` at C=512, k_cols
+   2048; the fits at M=1 and M=1024; ``run_chunk`` at the bench chunk; one
+   tuner step's h and H). Every output must equal the same calls here bit
+   for bit; the libraries must be built in that cache under this
+   checkout's names and nothing inside the install; neither jax nor
+   ``wva_tpu`` may be imported there. The installed ``wva-tpu-torch sweep
+   --smoke`` must write the recommendation file the checkout's
+   ``__main__.main`` writes.
+10. Print one JSON line describing every kernel of the path.
+11. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -172,6 +187,7 @@ import importlib.util
 import json
 import math
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -239,6 +255,7 @@ INSTANTIATIONS = {8, 16, 32, 64}  # values per lane (NV), k_cols 256..2048
 ROWS_TRIED = (4, 8)  # rows per block timed; the sizing path runs 8
 
 CUDA = torch.device("cuda")
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*args):
@@ -3452,6 +3469,269 @@ def phase_golden_worlds():
     return found
 
 
+# ---------------------------------------------------------------- phase 9
+
+# What a wheel of the repo is built from (the Dockerfile's first stage
+# copies the same).
+WHEEL_SOURCES = ("pyproject.toml", "README.md", "wva_tpu", "wva_tpu_torch")
+
+
+def kernel_libraries():
+    """The port's five kernel libraries by short name."""
+    return {"sizing": _build.LIBRARY, "setup": chain_setup.LIBRARY,
+            "stats": chain_stats.LIBRARY, "fit": fit_kernel.LIBRARY,
+            "scan": scan_kernel.LIBRARY}
+
+
+def kernel_counters():
+    """The wrappers' modules, each with its kernel's ``launches``."""
+    return {"sizing": sizing_kernel, "setup": chain_setup,
+            "stats": chain_stats, "fit": fit_kernel, "scan": scan_kernel,
+            "jacobian": jacobian_kernel}
+
+
+# Launches of one kernel_entry_outputs(): size_batch 3 (setup, sizing,
+# stats), analyze_batch 1 (stats), a fit at each of FIT_TIMED, one chunk,
+# one tuner step.
+ENTRY_LAUNCHES = {"sizing": 1, "setup": 1, "stats": 2, "fit": len(FIT_TIMED),
+                  "scan": 1, "jacobian": 1}
+INSTALLED_SEED = 20261017
+
+
+def kernel_entry_outputs():
+    """Every kernel entry of the port on fixed seeded inputs on the card,
+    each through the public path that the main paths call: ``size_batch``
+    at the headline grids (C=8, k_cols 512), ``analyze_batch`` at the
+    staged solve's shape (C=512, k_cols 2048), the fits at M=1 and M=1024,
+    ``run_chunk`` at the bench chunk (W=256, M=1, T=240) and one tuner
+    step's h and H. Returns (name -> numpy array, launches by kernel)."""
+    for module in kernel_counters().values():
+        module.launches = 0
+    out = {}
+    cand, targets = chain_times_inputs(8, INSTALLED_SEED)
+    for key, v in qm.size_batch(cand, *targets, k_cols=512).items():
+        out[f"size_batch C=8 {key}"] = v
+    cand, _ = chain_times_inputs(512, INSTALLED_SEED + 1)
+    rate = torch.tensor(np.random.default_rng(INSTALLED_SEED + 2).uniform(
+        0.5, 60.0, 512), dtype=torch.float32, device=CUDA)
+    for key, v in qm.analyze_batch(rate, cand, k_cols=2048).items():
+        out[f"analyze_batch C=512 {key}"] = v
+    for name, (m, full) in FIT_TIMED.items():  # M=1, M=1024 mixed and full
+        out[f"fit_grid {name}"] = fc.fit_grid(
+            *fit_inputs(m, INSTALLED_SEED + m, full=full), m=m)
+    params, lam = SWEEP_PARAMS, sweep_rates()
+    train, _ = sweep_search.split_seeds(SWEEP_TRAIN, SWEEP_HOLDOUT)
+    points = (sweep_knobs.grid_points(SWEEP_GRID) * SWEEP_CHUNK)[:SWEEP_CHUNK]
+    seeds = [train[i % len(train)] for i in range(SWEEP_CHUNK)]
+    rows = np.asarray([sweep_knobs.to_vector(k) for k in points],
+                      dtype=np.float32)
+    inputs = sweep_world.chunk_tensors(
+        rows, lam, sweep_world.arrivals_table(seeds, lam, params),
+        sweep_world.fault_table(seeds, lam.shape[0], params), CUDA)
+    for key, v in zip(("attainment", "chip_seconds", "wrong_direction",
+                       "total"), sweep_world.run_chunk(params, *inputs, 1.0)):
+        out[f"run_chunk W=256 {key}"] = v
+    out["tuner step h"], out["tuner step H"] = ekf._observe_and_jacobian(
+        torch.tensor(TUNER_X, dtype=torch.float32, device=CUDA),
+        torch.tensor(TUNER_ENV, dtype=torch.float32, device=CUDA))
+    torch.cuda.synchronize()
+    launches = {k: m.launches for k, m in kernel_counters().items()}
+    require(launches == ENTRY_LAUNCHES,
+            f"the kernel entries launched {launches}, expected "
+            f"{ENTRY_LAUNCHES}")
+    return {k: v.cpu().numpy() for k, v in out.items()}, launches
+
+
+def installed_child(out_npz):
+    """Phase 9's child, started with only the installed wheel on
+    ``PYTHONPATH``: build the five libraries (one thread each, timed),
+    write :func:`kernel_entry_outputs` to ``out_npz`` and print what it
+    found as one JSON line. Fails if a module of the port came from
+    anywhere but the install, or if jax or wva_tpu was imported."""
+    import wva_tpu_torch
+
+    site = os.path.realpath(os.environ["PYTHONPATH"])
+
+    def installed(path):
+        return os.path.commonpath([os.path.realpath(path), site]) == site
+
+    here = os.path.dirname(wva_tpu_torch.__file__)
+    require(installed(here),
+            f"wva_tpu_torch imported from {here}, not from {site}")
+
+    def build(lib):
+        t0 = time.perf_counter()
+        path = lib.build()
+        return str(path), time.perf_counter() - t0
+
+    libraries = kernel_libraries()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = dict(zip(libraries, pool.map(build, libraries.values())))
+    arrays, launches = kernel_entry_outputs()
+    np.savez(out_npz, **arrays)
+    foreign = sorted(
+        name for name, m in list(sys.modules.items())
+        if name.split(".")[0] == "wva_tpu_torch"
+        and getattr(m, "__file__", None) and not installed(m.__file__))
+    require(not foreign, f"port modules from outside the install: {foreign}")
+    imported = sorted({"jax", "wva_tpu"} & set(sys.modules))
+    require(not imported, f"the installed port imported {imported}")
+    print(json.dumps({"package": here, "built": built,
+                      "launches": launches}), flush=True)
+
+
+def copy_wheel_sources(dest):
+    """WHEEL_SOURCES of this checkout into ``dest``, without build outputs
+    or bytecode."""
+    import shutil
+
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "build",
+                                    "*.egg-info")
+    for name in WHEEL_SOURCES:
+        src = os.path.join(REPO, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(dest, name), ignore=ignore)
+        else:
+            shutil.copy2(src, os.path.join(dest, name))
+
+
+def pip(*args):
+    """``python -m pip`` offline, with no cache and no version check."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pip", *args, "--no-deps", "--no-index",
+         "--no-cache-dir", "--disable-pip-version-check", "-q"],
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"pip {args[0]} failed ({proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+
+
+def phase_installed():
+    """The port as a user installs it: a wheel built from a copy of this
+    checkout, installed with ``--target`` into a temporary directory, and
+    a child ``python`` run outside the repository with only that install on
+    ``PYTHONPATH`` and a fresh ``XDG_CACHE_HOME``. Every kernel entry's
+    outputs there must equal this checkout's bit for bit, the five
+    libraries must be built in that cache under this checkout's names (a
+    hash of the same sources and flags) and nothing under the install, and
+    the ``wva-tpu-torch`` command's ``sweep --smoke`` must write the
+    checkout's recommendation file."""
+    import tempfile
+    import zipfile
+
+    from wva_tpu_torch.__main__ import main as port_main
+
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="wva-installed-") as tmp:
+        src, site = os.path.join(tmp, "src"), os.path.join(tmp, "site")
+        cache, run = os.path.join(tmp, "cache"), os.path.join(tmp, "run")
+        os.mkdir(src)
+        os.mkdir(run)
+        copy_wheel_sources(src)
+        t0 = time.perf_counter()
+        pip("wheel", "--no-build-isolation", "-w", os.path.join(tmp, "dist"),
+            src)
+        wheel = next(os.scandir(os.path.join(tmp, "dist"))).path
+        pip("install", "--target", site, wheel)
+        install_s = time.perf_counter() - t0
+        with zipfile.ZipFile(wheel) as z:
+            shipped = sorted(n for n in z.namelist() if "/csrc/" in n)
+        on_disk = sorted(
+            os.path.relpath(os.path.join(d, f), REPO)
+            for d, _, files in os.walk(os.path.join(REPO, "wva_tpu_torch"))
+            if os.path.basename(d) == "csrc" for f in files)
+        require(shipped == on_disk,
+                f"the wheel ships {shipped} of csrc/, the checkout holds "
+                f"{on_disk}")
+
+        # The child: a copy of this script alone in its directory, so
+        # that nothing of the checkout is on its path.
+        script = os.path.join(run, os.path.basename(__file__))
+        with open(__file__, encoding="utf-8") as f, \
+                open(script, "w", encoding="utf-8") as g:
+            g.write(f.read())
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(PYTHONPATH=site, XDG_CACHE_HOME=cache)
+        npz = os.path.join(tmp, "installed.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script, "--installed-child",
+                               npz], cwd=run, env=env, capture_output=True,
+                              text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the installed child failed "
+                f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                f"{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+
+        mine, launches = kernel_entry_outputs()
+        with np.load(npz) as theirs:
+            require(sorted(theirs.files) == sorted(mine),
+                    f"entries {sorted(theirs.files)} against {sorted(mine)}")
+            differ = [k for k in mine
+                      if theirs[k].dtype != mine[k].dtype
+                      or theirs[k].shape != mine[k].shape
+                      or theirs[k].tobytes() != mine[k].tobytes()]
+        require(not differ, f"installed and checkout outputs differ: "
+                f"{differ}")
+        require(child["launches"] == launches,
+                f"launches {child['launches']} installed, {launches} here")
+
+        kernels = os.path.join(cache, "wva_tpu_torch", "kernels")
+        libraries = kernel_libraries()
+        want = sorted(lib.path().name for lib in libraries.values())
+        got = sorted(f for f in os.listdir(kernels) if f.endswith(".so"))
+        require(got == want, f"libraries in the cache {got}, the "
+                f"checkout's {want}")
+        require(all(os.path.dirname(p) == kernels
+                    for p, _ in child["built"].values()),
+                f"libraries built outside {kernels}: {child['built']}")
+        # Reported, not required: nvcc may stamp a build's own path or id.
+        same_bytes = {name: lib.path().read_bytes() == pathlib.Path(
+            kernels, lib.path().name).read_bytes()
+            for name, lib in libraries.items()}
+        in_site = sorted(
+            os.path.relpath(os.path.join(d, f), site)
+            for d, dirs, files in os.walk(site) for f in files + dirs
+            if f == "build" or f.endswith((".so", ".tmp", ".log")))
+        require(not in_site, f"built inside the install: {in_site}")
+
+        recs = os.path.join(tmp, "recs.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [os.path.join(site, "bin", "wva-tpu-torch"), "sweep", "--smoke",
+             "--out", recs], cwd=run, env=env, capture_output=True,
+            text=True, timeout=600)
+        command_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"wva-tpu-torch sweep --smoke failed "
+                f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        mine_recs = os.path.join(tmp, "recs-checkout.json")
+        require(port_main(["sweep", "--smoke", "--out", mine_recs]) == 0,
+                "the checkout's sweep --smoke failed")
+        with open(recs, "rb") as f, open(mine_recs, "rb") as g:
+            require(f.read() == g.read(), "wva-tpu-torch sweep --smoke "
+                    "wrote another recommendation than the checkout's")
+        found = dict(
+            wheel=os.path.basename(wheel), wheel_bytes=os.path.getsize(wheel),
+            csrc=shipped, wheel_and_install_s=install_s,
+            child_s=child_s, command_s=command_s,
+            built={name: dict(path=os.path.relpath(p, tmp), s=s)
+                   for name, (p, s) in child["built"].items()},
+            library_bytes_equal=same_bytes,
+            entries=len(mine), entries_bitwise_equal=True,
+            launches=launches, sweep_smoke_equal=True,
+            phase_s=time.perf_counter() - started)
+    log(f"[installed] {found['wheel']} {found['wheel_bytes']} B, "
+        f"{len(shipped)} files under csrc/: {', '.join(shipped)}; built in "
+        f"XDG_CACHE_HOME, none in the install: " + ", ".join(
+            f"{name} {b['s']:.1f} s {b['path']}"
+            for name, b in found["built"].items())
+        + f"; library bytes equal to the checkout's {same_bytes}; "
+        f"{len(mine)} entry outputs bitwise equal, launches {launches}; "
+        f"wva-tpu-torch sweep --smoke equal to the checkout's "
+        f"({command_s:.1f} s); phase {found['phase_s']:.1f} s")
+    return found
+
+
 def jacobian_times():
     """One tuner step's h and H at TUNER_X and TUNER_ENV: the kernel's
     launch (CUDA events) and device time (profiler), twice each, using only
@@ -3465,11 +3745,17 @@ def jacobian_times():
                            for _ in range(2)])
 
 
-# --only chain-times: the chain kernels' entries at the main paths' shapes
-# (label, C, k_cols, entries), every row at the worlds' max batch and k.
-CHAIN_TIMED = (("headline world's grids", 8, 512, ("setup", "tail")),
-               ("fleet tick's first call", 2048, 512, ("setup", "tail")),
+# --only chain-times: the chain kernels' entries and the sizing kernel
+# between them at the main paths' shapes (label, C, k_cols, entries), every
+# row at the worlds' max batch and k.
+CHAIN_TIMED = (("headline world's grids", 8, 512, ("setup", "sizing", "tail")),
+               ("fleet tick's first call", 2048, 512,
+                ("setup", "sizing", "tail")),
                ("staged solve's analyze_batch", 512, 2048, ("analyze",)))
+CHAIN_TIMED_KERNELS = {"setup": "chain_setup_kernel",
+                       "sizing": "sizing_bisection_kernel",
+                       "tail": "chain_stats_kernel",
+                       "analyze": "chain_stats_kernel"}
 CHAIN_TIMED_BATCH, CHAIN_TIMED_K = 96, 480
 
 LAUNCH_FLOOR_SOURCE = r"""// An empty kernel: the launch floor.
@@ -3490,8 +3776,11 @@ const char* launch_floor_error_string(int err) {
 def launch_floor():
     """An empty kernel's launch time (CUDA events) and device time
     (profiler), twice each: the floor under every launch, not a bound."""
-    source = cuda_build.BUILD_DIR / "launch_floor.cu"
-    source.parent.mkdir(parents=True, exist_ok=True)
+    # Checkouts older than cuda_build.build_dir have a BUILD_DIR.
+    kernels = (cuda_build.build_dir() if hasattr(cuda_build, "build_dir")
+               else cuda_build.BUILD_DIR)
+    kernels.mkdir(parents=True, exist_ok=True)
+    source = kernels / "launch_floor.cu"
     source.write_text(LAUNCH_FLOOR_SOURCE)
 
     def bind(lib):
@@ -3532,6 +3821,31 @@ def chain_entry_calls(entry, cand, targets, k_cols):
     c = int(cand.alpha.shape[0])
     stream = torch.cuda.current_stream().cuda_stream
     fields = [f.data_ptr() for f in cand]
+    if entry == "sizing":
+        # Its inputs as the sizing path gives them: the chain setup's.
+        setup = chain_setup.launch(cand, k_cols)
+        args = (setup.clm, setup.clm_at_k, cand, targets[:2].contiguous(),
+                setup.lo0, setup.hi0)
+        shape = sizing_kernel.launch_shape(c, k_cols)
+        nv = shape.values_per_lane
+        order = sizing_kernel.launch_order(
+            cand.k, k_cols, sizing_kernel.rows_per_wave(CUDA, nv))
+        out = sizing_kernel.sizing_bisection(*args)
+        lib = _build.LIBRARY.load()
+        ptrs = [t.data_ptr() for t in (
+            setup.clm, setup.clm_at_k, cand.alpha, cand.beta, cand.gamma,
+            cand.avg_input_tokens, cand.avg_output_tokens, cand.max_batch,
+            cand.k, args[3], setup.lo0, setup.hi0)] + [
+            None if order is None else order.data_ptr(), out.data_ptr()]
+        return dict(
+            wrapper=functools.partial(sizing_kernel.sizing_bisection, *args),
+            alone=lambda: lib.sizing_bisection_launch(
+                *ptrs, c, k_cols, qm._BISECTION_ITERS, nv,
+                sizing_kernel.ROWS_PER_BLOCK, 1, stream),
+            outs=[out],
+            plain=functools.partial(sizing_kernel.sizing_bisection_plain,
+                                    *args),
+            work=lambda ops: sizing_kernel.work(cand, k_cols))
     if entry == "setup":
         outs = list(chain_setup.launch(cand, k_cols))
         lib = chain_setup.LIBRARY.load()
@@ -3573,10 +3887,11 @@ def chain_entry_calls(entry, cand, targets, k_cols):
 
 
 def chain_times():
-    """The chain setup and statistics at CHAIN_TIMED's shapes: each entry
-    through its wrapper and its C function alone (CUDA events, in turns:
-    wrapper, launch, launch, wrapper) and on the device (profiler, twice),
-    beside its bound, with the sha256 of its outputs on fixed seeded inputs;
+    """The chain setup, the sizing kernel and the chain statistics at
+    CHAIN_TIMED's shapes: each entry through its wrapper and its C function
+    alone (CUDA events, in turns: wrapper, launch, launch, wrapper) and on
+    the device (profiler, twice), beside its bound and the bound's terms,
+    with the sha256 of its outputs on fixed seeded inputs;
     an empty kernel's times as the launch floor, and the jacobian kernel's.
     Uses only what every version of the chain kernels has (copy the script
     into an older checkout to compare two trees in one call)."""
@@ -3592,18 +3907,19 @@ def chain_times():
                 t.cpu().numpy().tobytes() for t in calls["outs"])).hexdigest()
             with OpCount() as count:
                 calls["plain"]()
-            bound_ms, term = calls["work"](count.pointwise_elements).bound()
+            work = calls["work"](count.pointwise_elements)
+            bound_ms, term = work.bound()
             runs = {"wrapper": [], "alone": []}
             for turn in ("wrapper", "alone", "alone", "wrapper"):
                 runs[turn].append(time_ms(calls[turn], 1000))
-            kernel = ("chain_setup_kernel" if entry == "setup"
-                      else "chain_stats_kernel")
+            kernel = CHAIN_TIMED_KERNELS[entry]
             times[f"{entry} C={c} k_cols={k_cols}"] = dict(
                 shape=label, wrapper_ms=runs["wrapper"],
                 launch_ms=runs["alone"],
                 device_ms=[device_ms(calls["alone"], 200, kernel)
                            for _ in range(2)],
-                bound_ms=bound_ms, bound_term=term, sha256=digest)
+                bound_ms=bound_ms, bound_term=term,
+                bounds_ms=work.bound_terms_ms(), sha256=digest)
     return times
 
 
@@ -3648,27 +3964,36 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("fit", "fit-times", "sweep", "world", "chain",
-                           "world-times", "fused-split", "jacobian-times",
-                           "chain-times"),
+                           "installed", "world-times", "fused-split",
+                           "jacobian-times", "chain-times"),
         help="fit: phases 1 and 4 alone; fit-times: the fit's wrapper and "
         "device times alone (also in an older checkout); sweep: phases 1 and "
         "7 alone; world: phases 1 and 6 alone; chain: phases 1 and 3b alone "
-        "(the fleet tick's batch restated); world-times: the headline "
+        "(the fleet tick's batch restated); installed: phases 1 and 9 alone "
+        "(the port installed from a wheel); world-times: the headline "
         "world's tick and tuner step alone (also in an older checkout); "
         "fused-split: the fused program's split by part on the headline "
         "world's grids; jacobian-times: the tuner step's h and H kernel "
-        "alone; chain-times: the chain setup and statistics at the main "
-        "paths' shapes, with output digests and the launch floor (these "
+        "alone; chain-times: the chain setup, sizing and statistics at the "
+        "main paths' shapes, with output digests and the launch floor (these "
         "three also in an older checkout). "
         "None prints the result lines.")
     parser.add_argument(
         "--fleet-way", choices=list(FLEET_WAYS)[1:],
         help="run the fleet world this way alone and print its decisions, "
         "tick times and launches as JSON (phase 3 starts these itself)")
+    parser.add_argument(
+        "--installed-child", metavar="NPZ",
+        help="build the kernels and write every kernel entry's outputs to "
+        "NPZ (phase 9 starts this itself, with only the installed port on "
+        "PYTHONPATH)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.installed_child:
+        installed_child(args.installed_child)
+        return 0
     if args.fleet_way:
         r = run_fleet_way(args.fleet_way)
         print(json.dumps({k: r[k] for k in ("decisions", "tick_ms",
@@ -3698,10 +4023,11 @@ def main(argv=None):
         return 1
     started = time.perf_counter()
     card, resources = phase_build()
-    if args.only in ("fit", "sweep", "world", "chain"):
+    if args.only in ("fit", "sweep", "world", "chain", "installed"):
         phases = {"fit": (4, lambda: (phase_fit(), phase_forecast())),
                   "sweep": (7, phase_sweep), "world": (6, phase_world),
-                  "chain": ("3b", phase_chain)}
+                  "chain": ("3b", phase_chain),
+                  "installed": (9, phase_installed)}
         number, run = phases[args.only]
         run()
         log(f"[time] phases 1 and {number} took "
@@ -3727,6 +4053,7 @@ def main(argv=None):
     world = timed("6 headline world", phase_world)
     sweep = timed("7 policy sweep", phase_sweep)
     golden = timed("8 golden worlds", phase_golden_worlds)
+    installed = timed("9 installed wheel", phase_installed)
     log(f"[time] chip_smoke.py phases took "
         f"{time.perf_counter() - started:.1f} s: " + ", ".join(
             f"{name} {s:.1f}" for name, s in times.items()))
@@ -3776,6 +4103,7 @@ def main(argv=None):
         "policy_sweep": sweep,
         "graft": graft_run,
         "golden_worlds": golden,
+        "installed": installed,
         "phase_s": times,
         "resources": resources,
         "card": card,

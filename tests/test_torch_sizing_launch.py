@@ -65,6 +65,42 @@ def test_work_and_bound_at_the_slice_call():
     assert round(terms["fp32"], 4) == 0.0155
 
 
+def test_chain_term_counts_the_widest_rows_iterations():
+    # 48 iterations of 22 scalar operations and two trees over the widest
+    # row's states (min(k, k_cols)), and the last mid.
+    assert sizing_kernel.chain_ops(480) == 48 * (22 + 2 * 9) + 2 == 1922
+    assert sizing_kernel.chain_ops(512) == 1922
+    assert sizing_kernel.chain_ops(513) == 48 * (22 + 2 * 10) + 2
+    assert sizing_kernel.chain_ops(1) == 48 * 22 + 2
+    assert sizing_kernel.work(_cand([100, 600, 2048]), 512).chain_ops == \
+        sizing_kernel.chain_ops(512)
+    assert sizing_kernel.work(_cand([100, 300]), 2048).chain_ops == \
+        sizing_kernel.chain_ops(300)
+    assert sizing_kernel.work(_cand([]), 512).chain_ops == 0
+
+
+def test_chain_binds_at_the_headline_grids():
+    # The headline world's call: 8 rows, k 480 at most, k_cols 512.
+    w = sizing_kernel.work(_cand([480] * 8), 512)
+    ms, term = w.bound()
+    assert term == "chain"
+    assert ms == w.bound_terms_ms()["chain"] == pytest.approx(
+        1922 * 4 / 1.98e9 * 1e3)
+    assert round(ms, 6) == 0.003883
+
+
+@pytest.mark.parametrize("c,k_cols,k_lo,k_hi", [(2048, 512, 480, 480),
+                                                (8192, 2048, 512, 2048),
+                                                (1024, 2048, 512, 2048)])
+def test_chain_term_leaves_the_wide_calls_to_the_sfu(c, k_cols, k_lo, k_hi):
+    # Phase 2's and the fleet tick's timed shapes stay bound by the exps.
+    k = np.random.default_rng(c).integers(k_lo, k_hi + 1, c)
+    w = sizing_kernel.work(_cand(k), k_cols)
+    terms = w.bound_terms_ms()
+    assert w.bound()[1] == "sfu"
+    assert terms["sfu"] > 5 * terms["chain"]
+
+
 def test_work_clamps_k_at_k_cols():
     w = sizing_kernel.work(_cand([100, 600, 2048]), 512)
     assert w.states == 100 + 512 + 512

@@ -30,6 +30,7 @@ the weighted sums as fused multiply-adds.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -94,6 +95,23 @@ _PASSES = 2 * _BISECTION_ITERS  # two lanes per iteration
 # alpha, beta, gamma, the token averages, max_batch, k), and targets, lo0,
 # hi0 and the output, two each.
 _ROW_FLOATS = 8 + 2 + 2 + 2 + 2
+# One bisection iteration's dependent operations besides its two trees,
+# counted from the plain version (_latencies and the update): mid (2), the
+# log of the clamped rate (2), logp (3), the max's clamp (1), w (2), z's
+# exp(-m) + sum (1), p_block's division (1), x (3), the response and
+# service times' divisions (1), the wait and its clamp (2), ttft's two adds
+# (2), the comparison and the select (2). The max tree and the sum tree
+# each add ceil(log2 n) over a row's n states; the lanes run side by side,
+# and the last mid adds 2.
+CHAIN_OPS_PER_ITERATION = 22
+
+
+def chain_ops(states_per_row: int) -> int:
+    """The dependent operations on the critical path of a row of
+    ``states_per_row`` states: 48 iterations, each its scalar chain and
+    two trees over the row's states."""
+    tree = math.ceil(math.log2(states_per_row)) if states_per_row > 1 else 0
+    return _BISECTION_ITERS * (CHAIN_OPS_PER_ITERATION + 2 * tree) + 2
 
 
 class Work(NamedTuple):
@@ -103,10 +121,13 @@ class Work(NamedTuple):
     exps: int
     fp32_ops: int
     bytes: int  # each input read once, the output written once
+    chain_ops: int  # dependent operations on the widest row's critical path
 
     def bound_terms_ms(self) -> dict[str, float]:
-        """Least time on an H100 for each resource alone, in ms."""
-        return {"bytes": 1e3 * self.bytes / cuda_build.HBM_BYTES_PER_S,
+        """Least time on an H100 for each resource alone, in ms: the bytes
+        and the chain (:func:`cuda_build.chain_bound_terms_ms`), the
+        float32 operations and the exps on the special-function units."""
+        return {**cuda_build.chain_bound_terms_ms(self.bytes, self.chain_ops),
                 "fp32": 1e3 * self.fp32_ops / FP32_OPS_PER_S,
                 "sfu": 1e3 * self.exps / SFU_EXPS_PER_S}
 
@@ -118,12 +139,15 @@ class Work(NamedTuple):
 def work(cand: CandidateBatch, k_cols: int) -> Work:
     """The work of one bisection call over ``cand`` at ``k_cols`` states:
     every state a row needs (up to its k, at most ``k_cols``) is read once
-    and evaluated in 96 passes, one exp each."""
-    states = int(torch.clamp(cand.k, max=k_cols).sum())
+    and evaluated in 96 passes, one exp each; the widest row's 48
+    iterations are the chain."""
+    needed = torch.clamp(cand.k, max=k_cols)
+    states = int(needed.sum())
     c = int(cand.k.shape[0])
     return Work(states=states, exps=_PASSES * states,
                 fp32_ops=_PASSES * OPS_PER_STATE_PASS * states,
-                bytes=4 * (states + c * _ROW_FLOATS))
+                bytes=4 * (states + c * _ROW_FLOATS),
+                chain_ops=chain_ops(int(needed.max())) if c else 0)
 
 
 def coefficients(clm_at_k: torch.Tensor, cand: CandidateBatch) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Each kernel source (a ``csrc/*.cu`` file with a plain C interface) is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library, which is
-loaded with ``ctypes``. A library goes to ``build/kernels/`` at the root of
-the checkout, named by the source's stem and a hash of the source and its
-flags, and is built at first use, never at import. A failed build raises;
-nothing falls back to a plain version.
+loaded with ``ctypes``. A library is named by the source's stem and a hash
+of the source, its headers and its flags, and is built at first use, never
+at import, into :func:`build_dir`: ``build/kernels/`` at the root of a
+checkout, or the user's cache where the package is installed. A failed
+build raises; nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -21,11 +22,37 @@ from typing import Callable, Sequence
 
 import torch
 
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
+PACKAGE_ROOT = Path(__file__).resolve().parent
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def build_dir(package_root: Path = PACKAGE_ROOT) -> Path:
+    """The directory the kernel libraries are built into, created if
+    missing. In a checkout (the package's parent holds the repository's
+    ``pyproject.toml``) it is ``build/kernels/`` at the checkout's root;
+    installed, ``wva_tpu_torch/kernels`` in the user's cache
+    (``$XDG_CACHE_HOME``, else ``~/.cache``). Library names carry a hash
+    of their sources and flags, so versions of the package share it
+    without collisions. Raises ``RuntimeError`` naming the directory if it
+    cannot be created or written."""
+    root = Path(package_root).parent
+    if (root / "pyproject.toml").is_file():
+        out = root / "build" / "kernels"
+    else:
+        cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+        out = Path(cache) / "wva_tpu_torch" / "kernels"
+    try:
+        out.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot create the kernel build directory "
+                           f"{out}: {e}") from e
+    if not os.access(out, os.W_OK | os.X_OK):
+        raise RuntimeError(f"the kernel build directory {out} is not "
+                           f"writable")
+    return out
 
 
 def cuda_tool(name: str) -> str:
@@ -61,24 +88,29 @@ class Library:
         digest = hashlib.sha256(
             b"".join(p.read_bytes() for p in (self.source, *self.depends))
             + " ".join(self.flags).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        return build_dir() / f"{self.source.stem}-{digest}.so"
 
     def build(self) -> Path:
         """Compile the library unless the current one exists; return its
-        path. The compiler's report goes beside it (:meth:`build_log`)."""
+        path. The compiler's report goes beside it (:meth:`build_log`).
+        Both are written under a name of this process and thread and moved
+        into place, so processes or threads that build the same library at
+        once leave one whole copy."""
         out = self.path()
         if out.exists():
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tag = f".{os.getpid()}-{threading.get_ident()}.tmp"
+        tmp, log = out.with_suffix(".so" + tag), out.with_suffix(".log" + tag)
         cmd = [cuda_tool("nvcc"), *self.flags, "-o", str(tmp),
                str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(log, out.with_suffix(".log"))
         os.replace(tmp, out)
         return out
 
