@@ -451,21 +451,654 @@ DEVICE_COPIES = {
 }
 
 
+# The port's spans (wva_tpu_torch/obs/SPANS.md), applied after the device
+# edits: the recorder's bridge to the torch profiler and its ``scoped``
+# helper, the grouped view's counts, the engine's spans (the fingerprint
+# pass, the fused program's grids, the tuner step, the decision stage,
+# which replace its stage timers, the records and the fleet solve) and the
+# sweep search's root and recorder hand-on.
+SPAN_EDITS = {
+    "obs/spans.py": [
+        ("(docs/design/observability.md).\n",
+         "(docs/design/observability.md; the port's trees and profiler ranges:\n"
+         "``wva_tpu_torch/obs/SPANS.md``).\n"),
+        ("durations (immune to world-clock jumps).\n"
+         '"""\n'
+         "\n",
+         "durations (immune to world-clock jumps).\n"
+         "\n"
+         "**One clock with the device trace.** When a torch profiler is recording\n"
+         "as a root opens, every span begun on the root's own thread also opens a\n"
+         "profiler range named ``wva:<span name>``, closed where the span closes,\n"
+         "so the tree lands on the profiler's timeline beside the kernels it\n"
+         "launched. The ranges are function-scoped: the profiler does not mirror\n"
+         "them onto the device's timeline. Spans of other threads stay in the tree\n"
+         "but are not mirrored (ranges of one thread nest), and so do the leaves\n"
+         "named in ``TREE_ONLY``: their parent's range holds their time. A range\n"
+         "closes every range opened inside it that is still open, so the ranges\n"
+         "nest even where an exception left a stage open. With no profiler\n"
+         "recording, a span pays one boolean test for this.\n"
+         '"""\n'
+         "\n"),
+        ("import threading\n",
+         "import sys\n"
+         "import threading\n"),
+        ("import time\n",
+         "import time\n"
+         "from contextlib import nullcontext\n"),
+        ("\n"
+         "\n"
+         "class Span:\n",
+         "\n"
+         "# Prefix of the profiler ranges that mirror spans.\n"
+         'RANGE_PREFIX = "wva:"\n'
+         "\n"
+         "# Spans kept in the tree but given no profiler range: each backend query\n"
+         "# (about 20 a tick for one model) and the innermost parts of the launch\n"
+         "# paths (the fused program's, the sweep chunk's, the EKF step's h and H).\n"
+         "# Inside a real tick under the profiler a range costs some 5 us of host\n"
+         "# time to open and close, several times its cost alone, so the ranges\n"
+         "# stop at the spans that hold these; the parent's range carries their\n"
+         "# time on the profiler's clock.\n"
+         'TREE_ONLY = frozenset({"backend_query", "stage", "launch", "readback",\n'
+         '                       "materialize", "h_jacobian"})\n'
+         "\n"
+         "\n"
+         'def scoped(spans: "SpanRecorder | None", name: str, **attrs):\n'
+         '    """``spans.span(name, **attrs)``, or a context that records nothing\n'
+         '    without a recorder (callers that take an optional ``spans``)."""\n'
+         "    if spans is None:\n"
+         "        return nullcontext()\n"
+         "    return spans.span(name, **attrs)\n"
+         "\n"
+         "\n"
+         "def _profiler_recording() -> bool:\n"
+         '    """Whether a torch profiler is recording in this process (False when\n'
+         '    torch was never imported: then none can be)."""\n'
+         '    torch = sys.modules.get("torch")\n'
+         "    if torch is None:\n"
+         "        return False\n"
+         "    try:\n"
+         "        return bool(torch._C._autograd._profiler_enabled())\n"
+         "    except Exception:  # noqa: BLE001 — observability must not bite\n"
+         "        return False\n"
+         "\n"
+         "\n"
+         "class Span:\n"),
+        ('                 "_t0")\n',
+         '                 "_t0", "_range")\n'),
+        ("        self._t0 = time.perf_counter()\n",
+         "        self._t0 = time.perf_counter()\n"
+         "        # The open profiler range mirroring this span, if any.\n"
+         "        self._range = None\n"),
+        ("        self.ticks_total = 0\n",
+         "        # Profiler mirroring, decided once per root: the range type while\n"
+         "        # a profiler records (else None), the root's thread, and the\n"
+         "        # mirrored spans whose ranges are still open.\n"
+         "        self._mirror = None\n"
+         "        self._root_thread = 0\n"
+         "        self._ranges: list[Span] = []\n"
+         "        self.ticks_total = 0\n"),
+        ('    def begin_tick(self, engine: str = "", **attrs) -> Span:\n',
+         '    def begin_tick(self, engine: str = "", name: str = "tick",\n'
+         "                   **attrs) -> Span:\n"
+         '        """Open a root: an engine tick, or any other unit of work recorded\n'
+         '        as one tree (the sweep opens one named ``search``)."""\n'
+         '        mirror = (sys.modules["torch"]._C._profiler._RecordFunctionFast\n'
+         "                  if _profiler_recording() else None)\n"),
+        ('                name = "tick"\n'
+         '            attrs = {**attrs, "engine": engine or self.engine}\n',
+         '            attrs = {**attrs, "engine": engine or self.engine}\n'),
+        ("            self._root = root\n"
+         "            self._default_parent = None\n"
+         "        # The engine thread's stack starts at the root; worker threads\n",
+         "            self._root = root\n"
+         "            self._default_parent = None\n"
+         "            self._close_ranges()\n"
+         "            self._mirror = mirror\n"
+         "            self._root_thread = threading.get_ident()\n"
+         "            if mirror is not None:\n"
+         "                self._open_range(root)\n"
+         "        # The engine thread's stack starts at the root; worker threads\n"),
+        ("            root.dur_ms = (time.perf_counter() - root._t0) * 1000.0\n",
+         "            root.dur_ms = (time.perf_counter() - root._t0) * 1000.0\n"
+         "            self._close_ranges()\n"),
+        ("            self._root = None\n"
+         "        self._stack().clear()\n"
+         "\n",
+         "            self._root = None\n"
+         "            self._close_ranges()\n"
+         "        self._stack().clear()\n"
+         "\n"),
+        ("            return span\n",
+         "            if (self._mirror is not None and name not in TREE_ONLY\n"
+         "                    and threading.get_ident() == self._root_thread):\n"
+         "                self._open_range(span)\n"
+         "            return span\n"),
+        ("            return\n"
+         "        span.dur_ms = (time.perf_counter() - span._t0) * 1000.0\n"
+         "        if attrs:\n",
+         "            return\n"
+         "        span.dur_ms = (time.perf_counter() - span._t0) * 1000.0\n"
+         "        if span._range is not None:\n"
+         "            self._close_range(span)\n"
+         "        if attrs:\n"),
+        ("        span.dur_ms = (time.perf_counter() - span._t0) * 1000.0\n"
+         "        stack = self._stack()\n"
+         "        if stack and stack[-1] is span:\n",
+         "        span.dur_ms = (time.perf_counter() - span._t0) * 1000.0\n"
+         "        if span._range is not None:\n"
+         "            self._close_range(span)\n"
+         "        stack = self._stack()\n"
+         "        if stack and stack[-1] is span:\n"),
+        ("            stack.pop()\n",
+         "            stack.pop()\n"
+         "\n"
+         "    def _open_range(self, span: Span) -> None:\n"
+         '        """Enter the profiler range mirroring ``span``."""\n'
+         "        try:\n"
+         "            rng = self._mirror(RANGE_PREFIX + span.name)\n"
+         "            rng.__enter__()\n"
+         "        except Exception:  # noqa: BLE001 — observability must not bite\n"
+         "            return\n"
+         "        span._range = rng\n"
+         "        self._ranges.append(span)\n"
+         "\n"
+         "    def _close_range(self, span: Span) -> None:\n"
+         "        \"\"\"Exit ``span``'s range, and first every range opened after it\n"
+         "        and still open (a stage an exception left open), so the ranges\n"
+         '        close innermost first."""\n'
+         "        ranges = self._ranges\n"
+         "        while span._range is not None and ranges:\n"
+         "            inner = ranges.pop()\n"
+         "            rng, inner._range = inner._range, None\n"
+         "            try:\n"
+         "                rng.__exit__(None, None, None)\n"
+         "            except Exception:  # noqa: BLE001\n"
+         "                pass\n"
+         "\n"
+         "    def _close_ranges(self) -> None:\n"
+         "        \"\"\"Close every range still open, innermost first (the root's end,\n"
+         '        an abandoned or errored root)."""\n'
+         "        if self._ranges:\n"
+         "            self._close_range(self._ranges[0])\n"),
+    ],
+    "collector/source/grouped.py": [
+        ("        self._plan_gq: dict[tuple, tuple] = {}\n"
+         "\n",
+         "        self._plan_gq: dict[tuple, tuple] = {}\n"
+         "        # What this tick's view did (the engine puts them on its phase\n"
+         "        # spans): fleet-wide backend queries executed, executions served\n"
+         "        # from the version book's memo, and model slices demuxed.\n"
+         "        self._count_mu = threading.Lock()\n"
+         '        self._counts = {"queries": 0, "memo_hits": 0, "demuxed": 0}\n'
+         "\n"
+         "    def counts(self) -> dict[str, int]:\n"
+         '        """A copy of this view\'s counts so far."""\n'
+         "        with self._count_mu:\n"
+         "            return dict(self._counts)\n"
+         "\n"
+         "    def _count(self, key: str, n: int = 1) -> None:\n"
+         "        with self._count_mu:\n"
+         "            self._counts[key] += n\n"
+         "\n"),
+        ("                if memo is not None:\n"
+         "                    return memo.versions\n",
+         "                if memo is not None:\n"
+         '                    self._count("memo_hits")\n'
+         "                    return memo.versions\n"),
+        ("            if memo is not None:\n"
+         "                # Provably byte-identical evaluation (no writes/drops to\n",
+         "            if memo is not None:\n"
+         '                self._count("memo_hits")\n'
+         "                # Provably byte-identical evaluation (no writes/drops to\n"),
+        ("                 if self._spans is not None else None)\n"
+         "        try:\n",
+         "                 if self._spans is not None else None)\n"
+         '        self._count("queries")\n'
+         "        try:\n"),
+        ('            demuxed["__versions__"] = versions\n'
+         "        for (model, ns), values in slices.items():\n",
+         '            demuxed["__versions__"] = versions\n'
+         '        self._count("demuxed", len(slices))\n'
+         "        for (model, ns), values in slices.items():\n"),
+    ],
+    "engines/saturation/engine.py": [
+        ("        self.last_tick_phase_seconds: dict[str, float] = {}\n"
+         "        # Host-stage breakdown of the v2 decision stage (bench-analyze's\n"
+         "        # host_breakdown instrument): wall seconds the LAST tick spent in\n"
+         "        # finalize / optimize / enforce / trace-materialize, under\n"
+         "        # whichever decision-stage form (vectorized or per-model loop)\n"
+         "        # ran — the A/B the bench reports.\n"
+         "        self.last_tick_stage_seconds: dict[str, float] = {}\n"
+         "        # Obs plane (WVA_SPANS; docs/design/observability.md): the span\n",
+         "        self.last_tick_phase_seconds: dict[str, float] = {}\n"
+         "        # Obs plane (WVA_SPANS; docs/design/observability.md): the span\n"),
+        ("        self._span_phases: dict[str, object] = {}\n"
+         "        # K8s object copies taken during the last tick (object plane\n",
+         "        self._span_phases: dict[str, object] = {}\n"
+         "        # The tick's grouped metrics view, whose counts (queries, memo\n"
+         "        # hits, models demuxed) each phase span carries, and the counts\n"
+         "        # at the open phase's start.\n"
+         "        self._tick_view = None\n"
+         "        self._phase_counts: dict[str, int] = {}\n"
+         "        # K8s object copies taken during the last tick (object plane\n"),
+        ("        self._cur_phase_span = span\n"
+         "        # Helper threads (analysis pool, query warmers) with no open span\n",
+         "        self._cur_phase_span = span\n"
+         "        self._phase_counts = self._view_counts()\n"
+         "        # Helper threads (analysis pool, query warmers) with no open span\n"),
+        ("        if self.spans is not None and self._cur_phase_span is not None:\n"
+         "            self.spans.end_span(self._cur_phase_span)\n"
+         "            self._cur_phase_span = None\n"
+         "            self.spans.set_default_parent(None)\n"
+         "\n",
+         "        if self.spans is not None and self._cur_phase_span is not None:\n"
+         "            start = self._phase_counts\n"
+         "            self.spans.end_span(self._cur_phase_span, **{\n"
+         "                k: v - start.get(k, 0)\n"
+         "                for k, v in self._view_counts().items()})\n"
+         "            self._cur_phase_span = None\n"
+         "            self.spans.set_default_parent(None)\n"
+         "\n"
+         "    def _view_counts(self) -> dict[str, int]:\n"
+         "        view = self._tick_view\n"
+         "        return view.counts() if view is not None else {}\n"
+         "\n"),
+        ("        return self.spans.span(name, **attrs)\n"
+         "\n",
+         "        return self.spans.span(name, **attrs)\n"
+         "\n"
+         "    def _open_span(self, name: str, **attrs):\n"
+         '        """``_obs_span`` entered until ``_close_span``, for a stage too\n'
+         "        long to indent under a ``with``. An exception between the two\n"
+         "        fails the tick: the phase's end then closes the stage's profiler\n"
+         "        range before its own (``SpanRecorder._close_range``), and the next\n"
+         '        tick\'s root clears the thread\'s stack."""\n'
+         "        if self.spans is None:\n"
+         "            return None\n"
+         "        ctx = self.spans.span(name, **attrs)\n"
+         "        ctx.__enter__()\n"
+         "        return ctx\n"
+         "\n"
+         "    @staticmethod\n"
+         "    def _close_span(ctx) -> None:\n"
+         "        if ctx is not None:\n"
+         "            ctx.__exit__(None, None, None)\n"
+         "\n"),
+        ("                self.enforcer.metrics_source = collector.source\n"
+         "            # Snapshot + collector construction, resync probe: the first\n",
+         "                self.enforcer.metrics_source = collector.source\n"
+         "            if isinstance(collector.source, GroupedMetricsView):\n"
+         "                self._tick_view = collector.source\n"
+         "            # Snapshot + collector construction, resync probe: the first\n"),
+        ('                self.spans.end_tick("success" if tick_ok else "error")\n'
+         "            if logjson.ACTIVE:\n",
+         '                self.spans.end_tick("success" if tick_ok else "error")\n'
+         "            self._tick_view = None\n"
+         "            if logjson.ACTIVE:\n"),
+        ("        if self.flight is not None:\n"
+         "            self.flight.record_decisions(decisions)\n"
+         "        apply_start = time.perf_counter()\n",
+         "        if self.flight is not None:\n"
+         '            with self._obs_span("record", decisions=len(decisions)):\n'
+         "                self.flight.record_decisions(decisions)\n"
+         "        apply_start = time.perf_counter()\n"),
+        ("        # event landing after capture makes next tick re-walk, never skip).\n"
+         "        tick_epochs: dict[str, int | None] = {}\n",
+         "        # event landing after capture makes next tick re-walk, never skip).\n"
+         '        versions = self._open_span("versions")\n'
+         "        tick_epochs: dict[str, int | None] = {}\n"),
+        ("                bulk_metrics = None\n"
+         "        # Scale-to-zero config resolves per NAMESPACE (a deepcopy), not\n",
+         "                bulk_metrics = None\n"
+         "        self._close_span(versions)\n"
+         "        # Scale-to-zero config resolves per NAMESPACE (a deepcopy), not\n"),
+        ("\n"
+         "        self._shadow_tick = {}\n",
+         "\n"
+         '        hashing = self._open_span("hash", models=len(model_groups))\n'
+         "        self._shadow_tick = {}\n"),
+        ("                clean.add(key)\n"
+         "        return clean, fingerprints\n",
+         "                clean.add(key)\n"
+         "        self._close_span(hashing)\n"
+         "        return clean, fingerprints\n"),
+        ("                try:\n"
+         "                    grids, fused_prep = self._fused_prepare(\n"
+         "                        plans, batch_keys, outcomes, slo_cfg_by_ns)\n"
+         "                except Exception as e:  # noqa: BLE001 — the lever must\n",
+         "                try:\n"
+         '                    with self._obs_span("fused_grids"):\n'
+         "                        grids, fused_prep = self._fused_prepare(\n"
+         "                            plans, batch_keys, outcomes, slo_cfg_by_ns)\n"
+         "                except Exception as e:  # noqa: BLE001 — the lever must\n"),
+        ('                        with self._obs_span("fused_dispatch",\n'
+         "                                            models=len(batch_keys)):\n"
+         "                            sized = self._fused_dispatch(grids, fused_prep)\n",
+         '                        with self._obs_span("fused_dispatch",\n'
+         "                                            models=len(batch_keys),\n"
+         "                                            rows=grids.n_candidates):\n"
+         "                            sized = self._fused_dispatch(grids, fused_prep)\n"),
+        ("        # invalidate + safety-net path as a per-model finalize raise.\n"
+         '        stage_s = {"finalize": 0.0, "optimize": 0.0, "enforce": 0.0,\n'
+         '                   "trace_materialize": 0.0}\n'
+         "        self.last_tick_stage_seconds = stage_s\n"
+         "        vec_finalized: dict[str, object] = {}\n",
+         "        # invalidate + safety-net path as a per-model finalize raise.\n"
+         '        decide = self._open_span("decide")\n'
+         '        finalize = self._open_span("finalize")\n'
+         "        vec_finalized: dict[str, object] = {}\n"),
+        ("            if vec_items:\n"
+         "                _t0 = time.perf_counter()\n"
+         '                with self._obs_span("vec_finalize",\n',
+         "            if vec_items:\n"
+         '                with self._obs_span("vec_finalize",\n'),
+        ("                            assert_mode=self.vec_assert)\n"
+         '                stage_s["finalize"] += time.perf_counter() - _t0\n'
+         "        for group_key in sorted(model_groups):\n",
+         "                            assert_mode=self.vec_assert)\n"
+         "        # The model records, encoded after the loop in its order, so their\n"
+         "        # encoding is one span and not one per model.\n"
+         "        to_record: list[dict] = []\n"
+         "        for group_key in sorted(model_groups):\n"),
+        ("                    if err is None:\n"
+         "                        _t0 = time.perf_counter()\n"
+         "                        try:\n",
+         "                    if err is None:\n"
+         "                        try:\n"),
+        ("                            err = e  # isolation (handled just below)\n"
+         '                        stage_s["finalize"] += time.perf_counter() - _t0\n'
+         "                    if err is not None:\n",
+         "                            err = e  # isolation (handled just below)\n"
+         "                    if err is not None:\n"),
+        ("            if self.flight is not None:\n"
+         "                _t0 = time.perf_counter()\n"
+         "                self.flight.record_model({\n"
+         '                    "model_id": model_id, "namespace": namespace,\n',
+         "            if self.flight is not None:\n"
+         "                to_record.append({\n"
+         '                    "model_id": model_id, "namespace": namespace,\n'),
+        ("                })\n"
+         '                stage_s["trace_materialize"] += time.perf_counter() - _t0\n'
+         "            requests.append(ModelScalingRequest(\n",
+         "                })\n"
+         "            requests.append(ModelScalingRequest(\n"),
+        ("                variant_states=data.variant_states))\n"
+         "\n",
+         "                variant_states=data.variant_states))\n"
+         "        self._close_span(finalize)\n"
+         "        if to_record:\n"
+         '            with self._obs_span("record", models=len(to_record)):\n'
+         "                for payload in to_record:\n"
+         "                    self.flight.record_model(payload)\n"
+         "\n"),
+        ("                        for vas in model_groups.values()})\n"
+         "            return []\n",
+         "                        for vas in model_groups.values()})\n"
+         "            self._close_span(decide)\n"
+         "            return []\n"),
+        ("                global_reqs = []\n"
+         "            if global_reqs:\n",
+         "                global_reqs = []\n"
+         '            optimize = self._open_span("optimize")\n'
+         "            if global_reqs:\n"),
+        ("            if local_reqs:\n"
+         "                _t0 = time.perf_counter()\n"
+         '                self._trace_section("optimizer")\n',
+         "            if local_reqs:\n"
+         '                self._trace_section("optimizer")\n'),
+        ("                        self.optimizer.optimize(local_reqs, None))\n"
+         '                stage_s["optimize"] += time.perf_counter() - _t0\n'
+         "\n",
+         "                        self.optimizer.optimize(local_reqs, None))\n"
+         "            self._close_span(optimize)\n"
+         "\n"),
+        ("            # same bridge over them after the solve.\n"
+         "            _t0 = time.perf_counter()\n"
+         '            self._trace_section("enforce")\n',
+         "            # same bridge over them after the solve.\n"
+         '            enforce = self._open_span("enforce")\n'
+         '            self._trace_section("enforce")\n'),
+        ('                                 "for %s", model_id)\n'
+         '            stage_s["enforce"] += time.perf_counter() - _t0\n'
+         '            self._trace_section("models")\n'
+         "\n"
+         "        self._apply_forecast(\n"
+         "            requests, decisions, routes,\n"
+         "            active_keys={(vas[0].spec.model_id, vas[0].metadata.namespace)\n"
+         "                         for vas in model_groups.values()},\n"
+         "            prepared=fused_prep)\n"
+         "\n",
+         '                                 "for %s", model_id)\n'
+         "            self._close_span(enforce)\n"
+         '            self._trace_section("models")\n'
+         "\n"
+         '        with self._obs_span("forecast"):\n'
+         "            self._apply_forecast(\n"
+         "                requests, decisions, routes,\n"
+         "                active_keys={(vas[0].spec.model_id,\n"
+         "                              vas[0].metadata.namespace)\n"
+         "                             for vas in model_groups.values()},\n"
+         "                prepared=fused_prep)\n"
+         "\n"),
+        ("        decisions.extend(cached_decisions)\n"
+         "        self._apply_limiter(decisions)\n"
+         "        return decisions\n",
+         "        decisions.extend(cached_decisions)\n"
+         '        with self._obs_span("limiter"):\n'
+         "            self._apply_limiter(decisions)\n"
+         "        self._close_span(decide)\n"
+         "        return decisions\n"),
+        ("        # their two-argument shape.\n"
+         "        if self._tick_presized:\n"
+         "            solution = solve(system, spec, presized=self._tick_presized,\n"
+         "                             device=self.device)\n"
+         "        else:\n"
+         "            solution = solve(system, spec, device=self.device)\n"
+         "        return self._allocations_to_decisions(req_by_server, solution)\n",
+         "        # their two-argument shape.\n"
+         '        with self._obs_span("fleet_solve", servers=len(servers)):\n'
+         "            if self._tick_presized:\n"
+         "                solution = solve(system, spec, presized=self._tick_presized,\n"
+         "                                 device=self.device)\n"
+         "            else:\n"
+         "                solution = solve(system, spec, device=self.device)\n"
+         "        return self._allocations_to_decisions(req_by_server, solution)\n"),
+        ("\n"
+         "        result = fused.run(grids, memo=self.solve_memo)\n"
+         "        if prep is not None:\n",
+         "\n"
+         "        result = fused.run(grids, memo=self.solve_memo, spans=self.spans)\n"
+         "        if prep is not None:\n"),
+        ("            )\n"
+         "            self.slo_tuner.observe(namespace, model_id, accelerator, env)\n"
+         "\n",
+         "            )\n"
+         '            with self._obs_span("tuner_step"):\n'
+         "                self.slo_tuner.observe(namespace, model_id, accelerator, env,\n"
+         "                                       spans=self.spans)\n"
+         "\n"),
+    ],
+    "sweep/search.py": [
+        ("                    chunk: int = 256, arrivals=None, faults=None,\n"
+         "                    device=None):\n"
+         '    """Score every (point x seed) world in batched dispatches. Returns\n',
+         "                    chunk: int = 256, arrivals=None, faults=None,\n"
+         "                    device=None, spans=None):\n"
+         '    """Score every (point x seed) world in batched dispatches. Returns\n'),
+        ("    res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,\n"
+         "                     arrivals=arrivals, faults=faults, device=device)\n"
+         '    m = res["objective"].shape[1]\n',
+         "    res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,\n"
+         "                     arrivals=arrivals, faults=faults, device=device,\n"
+         "                     spans=spans)\n"
+         '    m = res["objective"].shape[1]\n'),
+        ("                base: kb.PolicyKnobs | None = None,\n"
+         "                chunk: int = 256, device=None) -> SweepResult:\n"
+         "    points = kb.grid_points(grid, base)\n"
+         "    scores, att, chips, n = evaluate_points(params, points, train_seeds,\n"
+         "                                            lam, chunk, device=device)\n"
+         '    return SweepResult(points, scores, att, chips, n, "grid")\n',
+         "                base: kb.PolicyKnobs | None = None,\n"
+         "                chunk: int = 256, device=None, spans=None) -> SweepResult:\n"
+         "    points = kb.grid_points(grid, base)\n"
+         "    scores, att, chips, n = evaluate_points(params, points, train_seeds,\n"
+         "                                            lam, chunk, device=device,\n"
+         "                                            spans=spans)\n"
+         '    return SweepResult(points, scores, att, chips, n, "grid")\n'),
+        ("               elite_frac: float = 0.25, chunk: int = 256,\n"
+         "               device=None) -> SweepResult:\n"
+         '    """Cross-entropy method: seeded Gaussian over the knob box, refit\n',
+         "               elite_frac: float = 0.25, chunk: int = 256,\n"
+         "               device=None, spans=None) -> SweepResult:\n"
+         '    """Cross-entropy method: seeded Gaussian over the knob box, refit\n'),
+        ("        pts = [kb.clip(kb.from_vector(row)) for row in raw]\n"
+         "        scores, att, chips, n = evaluate_points(params, pts, train_seeds,\n"
+         "                                                lam, chunk, device=device)\n"
+         "        n_worlds += n\n"
+         "        all_points += pts\n",
+         "        pts = [kb.clip(kb.from_vector(row)) for row in raw]\n"
+         "        scores, att, chips, n = evaluate_points(params, pts, train_seeds,\n"
+         "                                                lam, chunk, device=device,\n"
+         "                                                spans=spans)\n"
+         "        n_worlds += n\n"
+         "        all_points += pts\n"),
+        ("              sigma_frac: float = 0.1, chunk: int = 256,\n"
+         "              device=None) -> SweepResult:\n"
+         '    """(mu, lambda) evolution strategy: perturb the running best with\n',
+         "              sigma_frac: float = 0.1, chunk: int = 256,\n"
+         "              device=None, spans=None) -> SweepResult:\n"
+         '    """(mu, lambda) evolution strategy: perturb the running best with\n'),
+        ("        pts[0] = kb.clip(kb.from_vector(best_vec))  # elitism\n"
+         "        scores, att, chips, n = evaluate_points(params, pts, train_seeds,\n"
+         "                                                lam, chunk, device=device)\n"
+         "        n_worlds += n\n"
+         "        all_points += pts\n",
+         "        pts[0] = kb.clip(kb.from_vector(best_vec))  # elitism\n"
+         "        scores, att, chips, n = evaluate_points(params, pts, train_seeds,\n"
+         "                                                lam, chunk, device=device,\n"
+         "                                                spans=spans)\n"
+         "        n_worlds += n\n"
+         "        all_points += pts\n"),
+        ("                 incumbent: kb.PolicyKnobs, holdout_seeds, lam,\n"
+         "                 model_idx: int, chunk: int = 256, device=None) -> dict:\n"
+         '    """Walk the candidate forward over ordered held-out seeds it never\n',
+         "                 incumbent: kb.PolicyKnobs, holdout_seeds, lam,\n"
+         "                 model_idx: int, chunk: int = 256, device=None,\n"
+         "                 spans=None) -> dict:\n"
+         '    """Walk the candidate forward over ordered held-out seeds it never\n'),
+        ("    res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,\n"
+         "                     device=device)\n"
+         '    obj = res["objective"][:, model_idx].reshape(len(holdout_seeds), 2)\n',
+         "    res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,\n"
+         "                     device=device, spans=spans)\n"
+         '    obj = res["objective"][:, model_idx].reshape(len(holdout_seeds), 2)\n'),
+        ("              incumbent: kb.PolicyKnobs | None = None,\n"
+         "              device=None) -> dict:\n"
+         '    """Per-model tuned-knob recommendations: the best train-seed point\n',
+         "              incumbent: kb.PolicyKnobs | None = None,\n"
+         "              device=None, spans=None) -> dict:\n"
+         '    """Per-model tuned-knob recommendations: the best train-seed point\n'),
+        ("        gate = walk_forward(params, cand, incumbent, holdout_seeds, lam,\n"
+         "                            m, chunk=chunk, device=device)\n"
+         "        recs[model] = {\n",
+         "        gate = walk_forward(params, cand, incumbent, holdout_seeds, lam,\n"
+         "                            m, chunk=chunk, device=device, spans=spans)\n"
+         "        recs[model] = {\n"),
+        ("              generations: int = 4, population: int = 32,\n"
+         "              device=None) -> dict:\n"
+         '    """End-to-end: split seeds, drive the chosen algorithm on train\n',
+         "              generations: int = 4, population: int = 32,\n"
+         "              device=None, spans=None) -> dict:\n"
+         '    """End-to-end: split seeds, drive the chosen algorithm on train\n'),
+        ("    recommendations report. ``device`` is where every world runs (None:\n"
+         '    the CUDA card)."""\n'
+         "    train, holdout = split_seeds(n_train, n_holdout, sweep_seed)\n"
+         '    if algo == "grid":\n'
+         "        result = grid_search(params, lam, train, grid=grid, chunk=chunk,\n"
+         "                             device=device)\n"
+         '    elif algo == "cem":\n'
+         "        result = cem_search(params, lam, train, sweep_seed=sweep_seed,\n"
+         "                            generations=generations, population=population,\n"
+         "                            chunk=chunk, device=device)\n"
+         '    elif algo == "es":\n'
+         "        result = es_search(params, lam, train, sweep_seed=sweep_seed,\n"
+         "                           generations=generations, population=population,\n"
+         "                           chunk=chunk, device=device)\n"
+         "    else:\n"
+         '        raise ValueError(f"unknown sweep algo {algo!r}; "\n'
+         '                         f"choose from {sorted(ALGOS)}")\n'
+         "    report = recommend(params, result, holdout, lam, models, chunk=chunk,\n"
+         "                       device=device)\n"
+         '    report["seeds"] = {"sweep_seed": sweep_seed, "train": train,\n'
+         '                       "holdout": holdout}\n'
+         '    report["grid"] = grid if algo == "grid" else None\n'
+         "    return report\n",
+         "    recommendations report. ``device`` is where every world runs (None:\n"
+         "    the CUDA card). With a span recorder (``obs.spans``) the search is\n"
+         "    one tree, the root ``search`` with a ``run_worlds`` span a call\n"
+         "    (:func:`~wva_tpu_torch.sweep.world.run_worlds`); an exception closes\n"
+         '    it with outcome ``error``."""\n'
+         "    if spans is not None:\n"
+         '        spans.begin_tick(name="search", algo=algo, sweep_seed=sweep_seed)\n'
+         '    outcome = "error"\n'
+         "    try:\n"
+         "        train, holdout = split_seeds(n_train, n_holdout, sweep_seed)\n"
+         '        if algo == "grid":\n'
+         "            result = grid_search(params, lam, train, grid=grid, chunk=chunk,\n"
+         "                                 device=device, spans=spans)\n"
+         '        elif algo == "cem":\n'
+         "            result = cem_search(params, lam, train, sweep_seed=sweep_seed,\n"
+         "                                generations=generations,\n"
+         "                                population=population, chunk=chunk,\n"
+         "                                device=device, spans=spans)\n"
+         '        elif algo == "es":\n'
+         "            result = es_search(params, lam, train, sweep_seed=sweep_seed,\n"
+         "                               generations=generations,\n"
+         "                               population=population, chunk=chunk,\n"
+         "                               device=device, spans=spans)\n"
+         "        else:\n"
+         '            raise ValueError(f"unknown sweep algo {algo!r}; "\n'
+         '                             f"choose from {sorted(ALGOS)}")\n'
+         "        report = recommend(params, result, holdout, lam, models, chunk=chunk,\n"
+         "                           device=device, spans=spans)\n"
+         '        report["seeds"] = {"sweep_seed": sweep_seed, "train": train,\n'
+         '                           "holdout": holdout}\n'
+         '        report["grid"] = grid if algo == "grid" else None\n'
+         '        outcome = "success"\n'
+         "        return report\n"
+         "    finally:\n"
+         "        if spans is not None:\n"
+         "            spans.end_tick(outcome)\n"),
+    ],
+}
+
+
+def _apply(want: str, edits) -> str:
+    for original, port in edits:
+        assert want.count(original) == 1, original
+        want = want.replace(original, port)
+    return want
+
+
 @pytest.mark.parametrize("rel", VERBATIM_COPIES)
 def test_copies_match_reference(rel):
     ref = (ROOT / "wva_tpu" / rel).read_text()
-    assert (PORT / rel).read_text() == re.sub(r"\bwva_tpu\b", "wva_tpu_torch",
-                                              ref)
+    want = re.sub(r"\bwva_tpu\b", "wva_tpu_torch", ref)
+    assert (PORT / rel).read_text() == _apply(want, SPAN_EDITS.get(rel, ()))
 
 
 @pytest.mark.parametrize("rel", sorted(DEVICE_COPIES))
 def test_device_copies_differ_only_in_the_device(rel):
     want = re.sub(r"\bwva_tpu\b", "wva_tpu_torch",
                   (ROOT / "wva_tpu" / rel).read_text())
-    for original, port in DEVICE_COPIES[rel]:
-        assert want.count(original) == 1, original
-        want = want.replace(original, port)
-    assert (PORT / rel).read_text() == want
+    want = _apply(want, DEVICE_COPIES[rel])
+    assert (PORT / rel).read_text() == _apply(want, SPAN_EDITS.get(rel, ()))
+
+
+def test_span_edits_are_held_copies():
+    assert set(SPAN_EDITS) <= set(VERBATIM_COPIES) | set(DEVICE_COPIES)
 
 
 _LAZY_YAML = (

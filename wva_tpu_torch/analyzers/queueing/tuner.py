@@ -43,6 +43,7 @@ from wva_tpu_torch.analyzers.queueing.queue_model import (
     rate_bounds_per_ms,
 )
 from wva_tpu_torch.device import resolve_device
+from wva_tpu_torch.obs.spans import scoped
 
 log = logging.getLogger(__name__)
 
@@ -231,10 +232,12 @@ class KalmanTuner:
         frac = self.config.observation_noise_frac
         return np.diag(np.maximum((frac * z) ** 2, 1e-9))
 
-    def run(self, env: TunerEnvironment) -> TunedResults:
+    def run(self, env: TunerEnvironment, spans=None) -> TunedResults:
         """One predict/update step against the observed environment
         (reference tuner.go:82-143). On NIS rejection the previous state is
-        kept and returned with ``validation_failed=True``."""
+        kept and returned with ``validation_failed=True``. With a span
+        recorder (``obs.spans``), h and H's launch and read back are the
+        span ``h_jacobian``; the rest of the step is the host's algebra."""
         if not env.valid():
             raise ValueError(f"cannot run tuner with invalid environment: {env}")
         cfg = self.config
@@ -260,7 +263,8 @@ class KalmanTuner:
         p_pred = self.P + self._q()
 
         # One device->host read for h and H together.
-        hh = _observation(inputs[:3], inputs[3:]).cpu().numpy()
+        with scoped(spans, "h_jacobian"):
+            hh = _observation(inputs[:3], inputs[3:]).cpu().numpy()
         h_val = hh[:, 0].astype(np.float64)
         H = hh[:, 1:].astype(np.float64)
 
@@ -355,9 +359,10 @@ class TunerController:
         self._tuners: dict[tuple[str, str, str], KalmanTuner] = {}
 
     def observe(self, namespace: str, model_id: str, accelerator: str,
-                env: TunerEnvironment) -> TunedResults | None:
+                env: TunerEnvironment, spans=None) -> TunedResults | None:
         """Feed one telemetry sample; returns the step result, or None when
-        there is no profile to refine / the environment is unusable."""
+        there is no profile to refine / the environment is unusable.
+        ``spans`` is handed to the step (:meth:`KalmanTuner.run`)."""
         if not env.valid():
             return None
         if 0.0 <= env.occupancy < self.config.min_occupancy:
@@ -390,7 +395,7 @@ class TunerController:
                 tuner = KalmanTuner(profile.service_parms, self.config,
                                     device=self.device)
                 self._tuners[key] = tuner
-        result = tuner.run(env)
+        result = tuner.run(env, spans=spans)
         if not result.validation_failed and result.service_parms.valid():
             self.profiles.update_service_parms(
                 model_id, accelerator, result.service_parms,

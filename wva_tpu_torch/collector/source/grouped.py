@@ -531,6 +531,20 @@ class GroupedMetricsView(MetricsSource):
         # refresh pays one dict hit per serve instead of a full re-plan.
         self._plan_pre: dict[str, tuple | None] = {}
         self._plan_gq: dict[tuple, tuple] = {}
+        # What this tick's view did (the engine puts them on its phase
+        # spans): fleet-wide backend queries executed, executions served
+        # from the version book's memo, and model slices demuxed.
+        self._count_mu = threading.Lock()
+        self._counts = {"queries": 0, "memo_hits": 0, "demuxed": 0}
+
+    def counts(self) -> dict[str, int]:
+        """A copy of this view's counts so far."""
+        with self._count_mu:
+            return dict(self._counts)
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._count_mu:
+            self._counts[key] += n
 
     # --- MetricsSource ---
 
@@ -824,6 +838,7 @@ class GroupedMetricsView(MetricsSource):
                 memo = book.reusable_fp(key, write_v, value_v,
                                         self._source.clock.now())
                 if memo is not None:
+                    self._count("memo_hits")
                     return memo.versions
             demuxed = self._demuxed(key, name, gq, params, has_ns)
             if demuxed is None:
@@ -848,6 +863,7 @@ class GroupedMetricsView(MetricsSource):
                 gq.metric_names)
             memo = book.reusable(key, write_version, collected_at)
             if memo is not None:
+                self._count("memo_hits")
                 # Provably byte-identical evaluation (no writes/drops to
                 # the query's metrics, no sample left its window): skip
                 # the backend query, re-emit the memoized slices under a
@@ -858,6 +874,7 @@ class GroupedMetricsView(MetricsSource):
                                           organic=organic)
         qspan = (self._spans.begin_span("backend_query", template=name)
                  if self._spans is not None else None)
+        self._count("queries")
         try:
             points, meta = self._source.execute_grouped_tracked(
                 name, gq.promql)
@@ -909,6 +926,7 @@ class GroupedMetricsView(MetricsSource):
         demuxed: dict = {"__collected_at__": collected_at}
         if versions is not None:
             demuxed["__versions__"] = versions
+        self._count("demuxed", len(slices))
         for (model, ns), values in slices.items():
             result = MetricResult(query_name=name, values=values,
                                   collected_at=collected_at)

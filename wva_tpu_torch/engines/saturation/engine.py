@@ -552,12 +552,6 @@ class SaturationEngine:
         # next hot path must be visible from metrics, not only from
         # `make bench-profile`.
         self.last_tick_phase_seconds: dict[str, float] = {}
-        # Host-stage breakdown of the v2 decision stage (bench-analyze's
-        # host_breakdown instrument): wall seconds the LAST tick spent in
-        # finalize / optimize / enforce / trace-materialize, under
-        # whichever decision-stage form (vectorized or per-model loop)
-        # ran — the A/B the bench reports.
-        self.last_tick_stage_seconds: dict[str, float] = {}
         # Obs plane (WVA_SPANS; docs/design/observability.md): the span
         # recorder build_manager installs when spans are on. Every tick
         # opens one span tree — tick -> phase -> per-model prepare/analyze
@@ -569,6 +563,11 @@ class SaturationEngine:
         self._span_root = None
         self._cur_phase_span = None
         self._span_phases: dict[str, object] = {}
+        # The tick's grouped metrics view, whose counts (queries, memo
+        # hits, models demuxed) each phase span carries, and the counts
+        # at the open phase's start.
+        self._tick_view = None
+        self._phase_counts: dict[str, int] = {}
         # K8s object copies taken during the last tick (object plane
         # accounting; ~0 at steady state — see wva_tick_object_copies).
         self.last_tick_object_copies = 0
@@ -653,6 +652,7 @@ class SaturationEngine:
         span = self.spans.begin_span(f"phase:{name}",
                                      parent=self._span_root)
         self._cur_phase_span = span
+        self._phase_counts = self._view_counts()
         # Helper threads (analysis pool, query warmers) with no open span
         # of their own attribute to the phase that spawned their work.
         self.spans.set_default_parent(span)
@@ -661,9 +661,16 @@ class SaturationEngine:
 
     def _end_phase_span(self) -> None:
         if self.spans is not None and self._cur_phase_span is not None:
-            self.spans.end_span(self._cur_phase_span)
+            start = self._phase_counts
+            self.spans.end_span(self._cur_phase_span, **{
+                k: v - start.get(k, 0)
+                for k, v in self._view_counts().items()})
             self._cur_phase_span = None
             self.spans.set_default_parent(None)
+
+    def _view_counts(self) -> dict[str, int]:
+        view = self._tick_view
+        return view.counts() if view is not None else {}
 
     def _obs_span(self, name: str, **attrs):
         """Scoped span under the calling thread's innermost open span
@@ -671,6 +678,23 @@ class SaturationEngine:
         if self.spans is None:
             return nullcontext()
         return self.spans.span(name, **attrs)
+
+    def _open_span(self, name: str, **attrs):
+        """``_obs_span`` entered until ``_close_span``, for a stage too
+        long to indent under a ``with``. An exception between the two
+        fails the tick: the phase's end then closes the stage's profiler
+        range before its own (``SpanRecorder._close_range``), and the next
+        tick's root clears the thread's stack."""
+        if self.spans is None:
+            return None
+        ctx = self.spans.span(name, **attrs)
+        ctx.__enter__()
+        return ctx
+
+    @staticmethod
+    def _close_span(ctx) -> None:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
 
     @contextmanager
     def _model_span(self, model_id: str, namespace: str):
@@ -820,6 +844,8 @@ class SaturationEngine:
             collector = self._tick_collector()
             if collector is not self.collector:
                 self.enforcer.metrics_source = collector.source
+            if isinstance(collector.source, GroupedMetricsView):
+                self._tick_view = collector.source
             # Snapshot + collector construction, resync probe: the first
             # slice of the "prepare" phase (the rest — VA listing,
             # grouping — is accumulated inside _optimize_with).
@@ -853,6 +879,7 @@ class SaturationEngine:
                 self._end_phase_span()
                 self._span_root = None
                 self.spans.end_tick("success" if tick_ok else "error")
+            self._tick_view = None
             if logjson.ACTIVE:
                 logjson.clear_context("engine", "tick", "shard")
 
@@ -948,7 +975,8 @@ class SaturationEngine:
             with self._obs_span("federation_gate"):
                 self._apply_federation_gate(decisions)
         if self.flight is not None:
-            self.flight.record_decisions(decisions)
+            with self._obs_span("record", decisions=len(decisions)):
+                self.flight.record_decisions(decisions)
         apply_start = time.perf_counter()
         self._phase_seconds["analyze"] = apply_start - analyze_start
         self._begin_phase_span("apply")
@@ -1418,6 +1446,7 @@ class SaturationEngine:
         # the first — and the memo would then silently stay fresh across a
         # real pod change. Capturing early is only ever conservative (an
         # event landing after capture makes next tick re-walk, never skip).
+        versions = self._open_span("versions")
         tick_epochs: dict[str, int | None] = {}
         if self.incremental_enabled and callable(epoch_fn):
             for gkey in model_groups:
@@ -1460,6 +1489,7 @@ class SaturationEngine:
             except Exception as e:  # noqa: BLE001 — degrade per model
                 log.debug("bulk slice versions failed: %s", e)
                 bulk_metrics = None
+        self._close_span(versions)
         # Scale-to-zero config resolves per NAMESPACE (a deepcopy), not
         # per model — hoisted out of the per-model loop.
         s2z_by_ns: dict[str, object] = {}
@@ -1470,6 +1500,7 @@ class SaturationEngine:
                     self.config.scale_to_zero_config_for_namespace(ns)
             return s2z_by_ns[ns]
 
+        hashing = self._open_span("hash", models=len(model_groups))
         self._shadow_tick = {}
         for key in sorted(model_groups):
             model_vas = model_groups[key]
@@ -1501,6 +1532,7 @@ class SaturationEngine:
                     and not self._route_is_global(model_vas, use_slo)
                     and not self._tuner_active(model_vas, use_slo)):
                 clean.add(key)
+        self._close_span(hashing)
         return clean, fingerprints
 
     def _assert_fp_equivalence(self, key: str, fp: tuple | None, model_vas,
@@ -2048,8 +2080,9 @@ class SaturationEngine:
                 # degradation path stays byte-identical to WVA_FUSED=off.
                 grids = None
                 try:
-                    grids, fused_prep = self._fused_prepare(
-                        plans, batch_keys, outcomes, slo_cfg_by_ns)
+                    with self._obs_span("fused_grids"):
+                        grids, fused_prep = self._fused_prepare(
+                            plans, batch_keys, outcomes, slo_cfg_by_ns)
                 except Exception as e:  # noqa: BLE001 — the lever must
                     # degrade to the staged path, never fail the tick.
                     log.warning("Fused grid build failed (%s); staged "
@@ -2058,7 +2091,8 @@ class SaturationEngine:
                 if grids is not None:
                     try:
                         with self._obs_span("fused_dispatch",
-                                            models=len(batch_keys)):
+                                            models=len(batch_keys),
+                                            rows=grids.n_candidates):
                             sized = self._fused_dispatch(grids, fused_prep)
                         batched_ok = True
                     except Exception as e:  # noqa: BLE001 — same.
@@ -2103,9 +2137,8 @@ class SaturationEngine:
         # byte-identically. The loop then consumes the precomputed
         # results; an errored model degrades alone through the same
         # invalidate + safety-net path as a per-model finalize raise.
-        stage_s = {"finalize": 0.0, "optimize": 0.0, "enforce": 0.0,
-                   "trace_materialize": 0.0}
-        self.last_tick_stage_seconds = stage_s
+        decide = self._open_span("decide")
+        finalize = self._open_span("finalize")
         vec_finalized: dict[str, object] = {}
         vec_finalize_errors: dict[str, Exception] = {}
         if self.vec_decide and use_slo:
@@ -2120,14 +2153,15 @@ class SaturationEngine:
                 vec_items.append((group_key, plan,
                                   sized.get(group_key, [])))
             if vec_items:
-                _t0 = time.perf_counter()
                 with self._obs_span("vec_finalize",
                                     models=len(vec_items)):
                     vec_finalized, vec_finalize_errors = \
                         vectorized.finalize_fleet(
                             self.slo_analyzer, vec_items,
                             assert_mode=self.vec_assert)
-                stage_s["finalize"] += time.perf_counter() - _t0
+        # The model records, encoded after the loop in its order, so their
+        # encoding is one span and not one per model.
+        to_record: list[dict] = []
         for group_key in sorted(model_groups):
             model_vas = model_groups[group_key]
             model_id = model_vas[0].spec.model_id
@@ -2166,13 +2200,11 @@ class SaturationEngine:
                     err = vec_finalize_errors.get(group_key)
                     result = None
                     if err is None:
-                        _t0 = time.perf_counter()
                         try:
                             result = self.slo_analyzer.finalize(
                                 out, sized.get(group_key, []))
                         except Exception as e:  # noqa: BLE001 — per-model
                             err = e  # isolation (handled just below)
-                        stage_s["finalize"] += time.perf_counter() - _t0
                     if err is not None:
                         log.error("SLO analysis failed for %s: %s",
                                   model_id, err)
@@ -2193,8 +2225,7 @@ class SaturationEngine:
                 ("global" if use_slo and sat_cfg.optimizer_name == "global"
                  else "cost-aware")
             if self.flight is not None:
-                _t0 = time.perf_counter()
-                self.flight.record_model({
+                to_record.append({
                     "model_id": model_id, "namespace": namespace,
                     "path": "slo" if use_slo else "v2",
                     # The route the optimizer split below actually takes, so
@@ -2208,10 +2239,14 @@ class SaturationEngine:
                     },
                     "result": result,
                 })
-                stage_s["trace_materialize"] += time.perf_counter() - _t0
             requests.append(ModelScalingRequest(
                 model_id=model_id, namespace=namespace, result=result,
                 variant_states=data.variant_states))
+        self._close_span(finalize)
+        if to_record:
+            with self._obs_span("record", models=len(to_record)):
+                for payload in to_record:
+                    self.flight.record_model(payload)
 
         # Health classification needs this tick's coverage (captured in the
         # merge above) and must exist BEFORE forecast floors consume the
@@ -2233,6 +2268,7 @@ class SaturationEngine:
             self._sweep_forecast_gauges(
                 set(), {(vas[0].spec.model_id, vas[0].metadata.namespace)
                         for vas in model_groups.values()})
+            self._close_span(decide)
             return []
 
         decisions: list[VariantDecision] = []
@@ -2255,11 +2291,11 @@ class SaturationEngine:
                 # lease-holder may run it (docs/design/sharding.md).
                 self._capture_global_requests(global_reqs)
                 global_reqs = []
+            optimize = self._open_span("optimize")
             if global_reqs:
                 decisions.extend(
                     self._optimize_global(global_reqs, slo_cfg_by_ns))
             if local_reqs:
-                _t0 = time.perf_counter()
                 self._trace_section("optimizer")
                 # Vectorized decision stage (WVA_VEC_DECIDE): the
                 # cost-aware greedy fills run as masked [M, V] column
@@ -2283,14 +2319,14 @@ class SaturationEngine:
                 else:
                     decisions.extend(
                         self.optimizer.optimize(local_reqs, None))
-                stage_s["optimize"] += time.perf_counter() - _t0
+            self._close_span(optimize)
 
             # Enforcer bridge per model (reference engine_v2.go:76-127) —
             # shared with the trace replay harness (pipeline.bridge_enforce).
             # A shard worker enforces only its locally-optimized models:
             # fleet-solved decisions do not exist yet — the fleet runs the
             # same bridge over them after the solve.
-            _t0 = time.perf_counter()
+            enforce = self._open_span("enforce")
             self._trace_section("enforce")
             enforce_keys = [
                 (req.model_id, req.namespace) for req in requests
@@ -2345,14 +2381,16 @@ class SaturationEngine:
                     if scaled_to_zero:
                         log.info("Scale-to-zero enforcement applied (V2) "
                                  "for %s", model_id)
-            stage_s["enforce"] += time.perf_counter() - _t0
+            self._close_span(enforce)
             self._trace_section("models")
 
-        self._apply_forecast(
-            requests, decisions, routes,
-            active_keys={(vas[0].spec.model_id, vas[0].metadata.namespace)
-                         for vas in model_groups.values()},
-            prepared=fused_prep)
+        with self._obs_span("forecast"):
+            self._apply_forecast(
+                requests, decisions, routes,
+                active_keys={(vas[0].spec.model_id,
+                              vas[0].metadata.namespace)
+                             for vas in model_groups.values()},
+                prepared=fused_prep)
 
         # Memoize each analyzed model's PRE-limiter decisions (with their
         # enforcement + forecast floors baked in) for heartbeat re-emission,
@@ -2367,7 +2405,9 @@ class SaturationEngine:
             self._memoize_model(key, fingerprints,
                                 fresh_by_key.get(key, []))
         decisions.extend(cached_decisions)
-        self._apply_limiter(decisions)
+        with self._obs_span("limiter"):
+            self._apply_limiter(decisions)
+        self._close_span(decide)
         return decisions
 
     # --- sharded active-active engine (wva_tpu_torch/shard;
@@ -3121,11 +3161,12 @@ class SaturationEngine:
         # the sharded fleet role (the workers sized their partitions) —
         # passed positionally-optional so test doubles of solve() keep
         # their two-argument shape.
-        if self._tick_presized:
-            solution = solve(system, spec, presized=self._tick_presized,
-                             device=self.device)
-        else:
-            solution = solve(system, spec, device=self.device)
+        with self._obs_span("fleet_solve", servers=len(servers)):
+            if self._tick_presized:
+                solution = solve(system, spec, presized=self._tick_presized,
+                                 device=self.device)
+            else:
+                solution = solve(system, spec, device=self.device)
         return self._allocations_to_decisions(req_by_server, solution)
 
     def _allocations_to_decisions(self, req_by_server, solution):
@@ -3316,7 +3357,7 @@ class SaturationEngine:
         byte-identical."""
         from wva_tpu_torch import fused
 
-        result = fused.run(grids, memo=self.solve_memo)
+        result = fused.run(grids, memo=self.solve_memo, spans=self.spans)
         if prep is not None:
             prep.fits = result.fits
             prep.chosen = result.chosen
@@ -3440,7 +3481,9 @@ class SaturationEngine:
                 occupancy=occupancy,
                 kv_occupancy=kv_occupancy,
             )
-            self.slo_tuner.observe(namespace, model_id, accelerator, env)
+            with self._obs_span("tuner_step"):
+                self.slo_tuner.observe(namespace, model_id, accelerator, env,
+                                       spans=self.spans)
 
     # --- shared data preparation ---
 

@@ -26,6 +26,7 @@ import torch
 from wva_tpu_torch.analyzers.queueing.queue_model import size_batch
 from wva_tpu_torch.forecast import forecasters as fc
 from wva_tpu_torch.fused.grids import UNTRUSTED, FleetGrids
+from wva_tpu_torch.obs.spans import scoped
 from wva_tpu_torch.utils import dispatch
 
 # The (candidate bucket, k_cols, model bucket) shapes the program has run;
@@ -96,13 +97,16 @@ def _fits(grids: FleetGrids, impl: str | None) -> torch.Tensor:
 
 
 def run(grids: FleetGrids, memo: bool = True,
-        impl: str | None = None) -> FusedResult:
+        impl: str | None = None, spans=None) -> FusedResult:
     """Execute the fused program for one tick's grids: ONE dispatch, ONE
     host transfer. With ``memo`` a tick whose every candidate solve key is
     already memoized runs only the forecast fits and reads the sized rows
     from the memo, bitwise what the solve would return. ``impl="plain"``
     runs both kernels' plain versions on the grids' device (the card's
-    oracle); None launches the kernels on CUDA grids."""
+    oracle); None launches the kernels on CUDA grids. With a span recorder
+    (``obs.spans``) the program's parts are spans: ``launch`` (the
+    kernels enqueued; ``memo=hit`` on the fits-only path), ``readback``
+    (the one host transfer) and ``materialize`` (the host view)."""
     if grids.n_candidates == 0:
         raise ValueError("fused program needs at least one candidate")
     n = grids.n_candidates
@@ -114,34 +118,41 @@ def run(grids: FleetGrids, memo: bool = True,
             and all(k in _SOLVE_MEMO for k in rows)):
         _memo_counters["hit_ticks"] += 1
         dispatch.note()
-        fits = _fits(grids, impl).cpu().numpy()
-        rates = [_SOLVE_MEMO[k][0] for k in rows]
-        throughput = [_SOLVE_MEMO[k][1] for k in rows]
-        return _materialize(grids, rates, throughput, fits)
+        with scoped(spans, "launch", memo="hit"):
+            fits = _fits(grids, impl)
+        with scoped(spans, "readback"):
+            fits = fits.cpu().numpy()
+        with scoped(spans, "materialize"):
+            rates = [_SOLVE_MEMO[k][0] for k in rows]
+            throughput = [_SOLVE_MEMO[k][1] for k in rows]
+            return _materialize(grids, rates, throughput, fits)
 
     _memo_counters["solve_ticks"] += 1
     dispatch.note()
     c = int(grids.cand.alpha.shape[0])
     _SHAPES.add((c, grids.k_cols, grids.m_bucket))
-    sized = size_batch(grids.cand, grids.t_ttft, grids.t_itl, grids.t_tps,
-                       k_cols=grids.k_cols, impl=impl)
-    parts = [sized["max_rate_per_s"], sized["throughput_per_s"]]
-    if grids.m_bucket:
-        parts.append(_fits(grids, impl).reshape(-1))
-    host = torch.cat(parts).cpu().numpy()  # the one host transfer
-    fits = (host[2 * c:].reshape(len(fc.FORECASTERS), grids.m_bucket)
-            if grids.m_bucket else None)
-
-    # Same conversion as the staged reads: float64 python lists built
-    # from the float32 device values (bit-preserving).
-    rates = host[:n].astype(np.float64).tolist()
-    throughput = host[c:c + n].tolist()
-    if memo and len(rows) == n:
-        if len(_SOLVE_MEMO) > _SOLVE_MEMO_MAX:
-            _SOLVE_MEMO.clear()
-        for key, r, t in zip(rows, rates, throughput):
-            _SOLVE_MEMO[key] = (r, t)
-    return _materialize(grids, rates, throughput, fits)
+    with scoped(spans, "launch"):
+        sized = size_batch(grids.cand, grids.t_ttft, grids.t_itl,
+                           grids.t_tps, k_cols=grids.k_cols, impl=impl)
+        parts = [sized["max_rate_per_s"], sized["throughput_per_s"]]
+        if grids.m_bucket:
+            parts.append(_fits(grids, impl).reshape(-1))
+        stacked = torch.cat(parts)
+    with scoped(spans, "readback"):
+        host = stacked.cpu().numpy()  # the one host transfer
+    with scoped(spans, "materialize"):
+        fits = (host[2 * c:].reshape(len(fc.FORECASTERS), grids.m_bucket)
+                if grids.m_bucket else None)
+        # Same conversion as the staged reads: float64 python lists built
+        # from the float32 device values (bit-preserving).
+        rates = host[:n].astype(np.float64).tolist()
+        throughput = host[c:c + n].tolist()
+        if memo and len(rows) == n:
+            if len(_SOLVE_MEMO) > _SOLVE_MEMO_MAX:
+                _SOLVE_MEMO.clear()
+            for key, r, t in zip(rows, rates, throughput):
+                _SOLVE_MEMO[key] = (r, t)
+        return _materialize(grids, rates, throughput, fits)
 
 
 def _materialize(grids: FleetGrids, rates: list[float],

@@ -1,5 +1,6 @@
 """In-process hierarchical span recorder for the fleet tick
-(docs/design/observability.md).
+(docs/design/observability.md; the port's trees and profiler ranges:
+``wva_tpu_torch/obs/SPANS.md``).
 
 Every engine tick opens one **tick span**; the engine's phase boundaries,
 per-model prepare/analyze, the fused device dispatch, the grouped
@@ -29,6 +30,18 @@ single-threaded world produces the identical tree. Timestamps pair the
 injectable world clock (``utils/clock`` — comparable across processes and
 meaningful in simulation) with ``time.perf_counter()`` monotonic
 durations (immune to world-clock jumps).
+
+**One clock with the device trace.** When a torch profiler is recording
+as a root opens, every span begun on the root's own thread also opens a
+profiler range named ``wva:<span name>``, closed where the span closes,
+so the tree lands on the profiler's timeline beside the kernels it
+launched. The ranges are function-scoped: the profiler does not mirror
+them onto the device's timeline. Spans of other threads stay in the tree
+but are not mirrored (ranges of one thread nest), and so do the leaves
+named in ``TREE_ONLY``: their parent's range holds their time. A range
+closes every range opened inside it that is still open, so the ranges
+nest even where an exception left a stage open. With no profiler
+recording, a span pays one boolean test for this.
 """
 
 from __future__ import annotations
@@ -37,8 +50,10 @@ import json
 import logging
 import os
 import queue
+import sys
 import threading
 import time
+from contextlib import nullcontext
 
 from wva_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 
@@ -58,13 +73,46 @@ DROP_REASON_NO_TICK = "no-open-tick"
 # Keep at most this many slow-tick dump files per process (oldest pruned).
 MAX_SLOW_DUMPS = 20
 
+# Prefix of the profiler ranges that mirror spans.
+RANGE_PREFIX = "wva:"
+
+# Spans kept in the tree but given no profiler range: each backend query
+# (about 20 a tick for one model) and the innermost parts of the launch
+# paths (the fused program's, the sweep chunk's, the EKF step's h and H).
+# Inside a real tick under the profiler a range costs some 5 us of host
+# time to open and close, several times its cost alone, so the ranges
+# stop at the spans that hold these; the parent's range carries their
+# time on the profiler's clock.
+TREE_ONLY = frozenset({"backend_query", "stage", "launch", "readback",
+                       "materialize", "h_jacobian"})
+
+
+def scoped(spans: "SpanRecorder | None", name: str, **attrs):
+    """``spans.span(name, **attrs)``, or a context that records nothing
+    without a recorder (callers that take an optional ``spans``)."""
+    if spans is None:
+        return nullcontext()
+    return spans.span(name, **attrs)
+
+
+def _profiler_recording() -> bool:
+    """Whether a torch profiler is recording in this process (False when
+    torch was never imported: then none can be)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return bool(torch._C._autograd._profiler_enabled())
+    except Exception:  # noqa: BLE001 — observability must not bite
+        return False
+
 
 class Span:
     """One node of a tick tree. Slotted and dict-free when attribute-less:
     the quiet-tick overhead budget is single-digit microseconds per span."""
 
     __slots__ = ("span_id", "name", "ts", "dur_ms", "attrs", "children",
-                 "_t0")
+                 "_t0", "_range")
 
     def __init__(self, span_id: str, name: str, ts: float,
                  attrs: dict | None) -> None:
@@ -75,6 +123,8 @@ class Span:
         self.attrs = attrs
         self.children: list[Span] = []
         self._t0 = time.perf_counter()
+        # The open profiler range mirroring this span, if any.
+        self._range = None
 
     def to_dict(self) -> dict:
         d: dict = {"span_id": self.span_id, "name": self.name,
@@ -143,6 +193,12 @@ class SpanRecorder:
         # (fleet trace id, shard id) here before driving the worker tick.
         self._adopted: tuple[str, int] | None = None
         self._last_tree: dict | None = None
+        # Profiler mirroring, decided once per root: the range type while
+        # a profiler records (else None), the root's thread, and the
+        # mirrored spans whose ranges are still open.
+        self._mirror = None
+        self._root_thread = 0
+        self._ranges: list[Span] = []
         self.ticks_total = 0
         self.dropped_total = 0
         self.slow_dumps_total = 0
@@ -170,7 +226,12 @@ class SpanRecorder:
         with self._mu:
             self._adopted = (trace_id, int(shard_id))
 
-    def begin_tick(self, engine: str = "", **attrs) -> Span:
+    def begin_tick(self, engine: str = "", name: str = "tick",
+                   **attrs) -> Span:
+        """Open a root: an engine tick, or any other unit of work recorded
+        as one tree (the sweep opens one named ``search``)."""
+        mirror = (sys.modules["torch"]._C._profiler._RecordFunctionFast
+                  if _profiler_recording() else None)
         with self._mu:
             self._tick_seq += 1
             self._span_seq = 0
@@ -182,12 +243,16 @@ class SpanRecorder:
                 name = "shard_tick"
             else:
                 self._trace_id = f"t{self._tick_seq:08d}"
-                name = "tick"
             attrs = {**attrs, "engine": engine or self.engine}
             self._span_seq += 1
             root = Span(f"s{self._span_seq}", name, self.clock.now(), attrs)
             self._root = root
             self._default_parent = None
+            self._close_ranges()
+            self._mirror = mirror
+            self._root_thread = threading.get_ident()
+            if mirror is not None:
+                self._open_range(root)
         # The engine thread's stack starts at the root; worker threads
         # fall back to the root when their local stack is empty.
         self._stack().clear()
@@ -203,6 +268,7 @@ class SpanRecorder:
             if root is None:
                 return None
             root.dur_ms = (time.perf_counter() - root._t0) * 1000.0
+            self._close_ranges()
             tree = {
                 "schema": SPAN_SCHEMA_VERSION,
                 "trace_id": self._trace_id,
@@ -235,6 +301,7 @@ class SpanRecorder:
         failed attempt's spans must not stack under the retry's)."""
         with self._mu:
             self._root = None
+            self._close_ranges()
         self._stack().clear()
 
     # --- span creation (engine, collector, capacity, actuation) ---
@@ -260,12 +327,17 @@ class SpanRecorder:
             span = Span(f"s{self._span_seq}", name, self.clock.now(),
                         attrs or None)
             parent.children.append(span)
+            if (self._mirror is not None and name not in TREE_ONLY
+                    and threading.get_ident() == self._root_thread):
+                self._open_range(span)
             return span
 
     def end_span(self, span: Span | None, **attrs) -> None:
         if span is None:
             return
         span.dur_ms = (time.perf_counter() - span._t0) * 1000.0
+        if span._range is not None:
+            self._close_range(span)
         if attrs:
             span.attrs = {**(span.attrs or {}), **attrs}
 
@@ -395,9 +467,40 @@ class SpanRecorder:
 
     def _pop(self, span: Span) -> None:
         span.dur_ms = (time.perf_counter() - span._t0) * 1000.0
+        if span._range is not None:
+            self._close_range(span)
         stack = self._stack()
         if stack and stack[-1] is span:
             stack.pop()
+
+    def _open_range(self, span: Span) -> None:
+        """Enter the profiler range mirroring ``span``."""
+        try:
+            rng = self._mirror(RANGE_PREFIX + span.name)
+            rng.__enter__()
+        except Exception:  # noqa: BLE001 — observability must not bite
+            return
+        span._range = rng
+        self._ranges.append(span)
+
+    def _close_range(self, span: Span) -> None:
+        """Exit ``span``'s range, and first every range opened after it
+        and still open (a stage an exception left open), so the ranges
+        close innermost first."""
+        ranges = self._ranges
+        while span._range is not None and ranges:
+            inner = ranges.pop()
+            rng, inner._range = inner._range, None
+            try:
+                rng.__exit__(None, None, None)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _close_ranges(self) -> None:
+        """Close every range still open, innermost first (the root's end,
+        an abandoned or errored root)."""
+        if self._ranges:
+            self._close_range(self._ranges[0])
 
     def _drop(self, reason: str) -> None:
         with self._mu:
