@@ -478,6 +478,22 @@ def test_search_tree_and_results_bitwise_equal_with_a_recorder():
                                                       "readback"]
 
 
+def test_search_spans_count_distinct_seeds_and_points():
+    from wva_tpu_torch.sweep import knobs
+
+    rec = SpanRecorder()
+    _search(rec)
+    (tree,) = rec.snapshot()
+    train, holdout = [c for c in tree["children"] if c["name"] == "run_worlds"]
+    n_points = len(knobs.grid_points("smoke"))
+    for call, seeds, points in ((train, 3, n_points), (holdout, 2, 2)):
+        tables, rows = call["children"][:2]
+        assert tables["name"] == "tables" and rows["name"] == "knob_rows"
+        assert tables["attrs"] == {"worlds": seeds * points, "seeds": seeds}
+        assert rows["attrs"] == {"worlds": seeds * points, "points": points}
+        assert call["attrs"]["worlds"] == seeds * points
+
+
 def test_search_error_closes_the_root_and_every_range(monkeypatch):
     from wva_tpu_torch.sweep import world
 

@@ -20,6 +20,12 @@ The scenario is the reference's smoke scenario
 - Without a card, ``device=None`` raises.
 - ``chip_smoke.py`` phase 7 runs the sweep at ``make bench-sweep``'s full
   shape (bench.py's ``sweep_plane_bench``).
+- ``run_worlds`` builds each distinct seed's tables and each distinct knob
+  object's row once and gathers them: every output bitwise equal to
+  per-world tables and rows, with repeated, NaN and ``-0.0`` points and
+  repeated seeds; one build a table and at most two ``to_vector`` calls a
+  point per call; the smoke search's JSON byte-identical to a golden taken
+  before the reuse (``tests/goldens/sweep_smoke_recommendations_v1.json``).
 """
 
 import json
@@ -275,3 +281,111 @@ def test_chip_smoke_restates_the_bench_sweep_shape(monkeypatch):
         chunk=chip_smoke.SWEEP_CHUNK)
     assert chip_smoke.SWEEP_TRAIN * len(kb.grid_points(
         chip_smoke.SWEEP_GRID)) >= chip_smoke.SWEEP_MIN_WORLDS
+
+
+# -- each seed's tables and each point's row built once a call ------------
+
+SHORT = world.WorldParams(horizon_s=600.0)
+
+
+def _bits(a) -> tuple:
+    a = np.asarray(a)
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def test_reused_tables_and_rows_are_bitwise_per_world_builds(monkeypatch):
+    lam = world.rate_table([_profile(loadgen), loadgen.trapezoid(
+        10.0, 60.0, 120.0, 180.0, 120.0, tail=60.0, delay=60.0)], SHORT)
+    shared = kb.grid_points("smoke")[5]
+    zero = kb.PolicyKnobs(trend_gain=0.0)
+    negative_zero = kb.PolicyKnobs(trend_gain=-0.0)
+    nan = kb.PolicyKnobs(level_gain=float("nan"))
+    assert zero == negative_zero and zero is not negative_zero
+    knobs = [shared, zero, nan, shared, negative_zero, kb.DEFAULT_KNOBS,
+             shared, nan, zero]
+    seeds = [907, 113, 907, 2**40 + 3, 113, 455, np.int64(455), 907, 113]
+    staged = []
+    inner = world.chunk_tensors
+
+    def chunk_tensors(rows, *args, **kwargs):
+        staged.append(np.array(rows))
+        return inner(rows, *args, **kwargs)
+
+    monkeypatch.setattr(world, "chunk_tensors", chunk_tensors)
+    built = world.run_worlds(SHORT, knobs, seeds, lam, chunk=4, device=CPU)
+    reused_rows = np.concatenate(staged)
+    staged.clear()
+    per_world = world.run_worlds(
+        SHORT, knobs, seeds, lam, chunk=4, device=CPU,
+        arrivals=world.arrivals_table(seeds, lam, SHORT),
+        faults=world.fault_table(seeds, lam.shape[0], SHORT))
+    assert world.fault_table(seeds, 2, SHORT).any()
+    for key in ("attainment", "chip_seconds", "wrong_direction",
+                "arrivals_total", "objective", "score", "degenerate"):
+        assert _bits(built[key]) == _bits(per_world[key]), key
+    want_rows = np.asarray([kb.to_vector(k) for k in knobs],
+                           dtype=np.float32)
+    assert _bits(reused_rows) == _bits(want_rows)
+    assert np.signbit(reused_rows[4, kb.KNOB_FIELDS.index("trend_gain")])
+    assert built["degenerate"].tolist() == [kb.is_degenerate(k)
+                                            for k in knobs]
+    assert built["degenerate"][[2, 7]].all()
+
+
+def test_one_build_a_table_and_a_row_a_point_per_call(monkeypatch):
+    params = world.WorldParams(horizon_s=300.0)
+    lam = world.rate_table([_profile(loadgen)], params)
+    table_seeds = {"arrivals": [], "faults": []}
+    to_vector_calls = []
+    calls = []
+    inner = {"arrivals": world.arrivals_table, "faults": world.fault_table,
+             "to_vector": kb.to_vector, "run_worlds": search.run_worlds}
+
+    def arrivals_table(world_seeds, *args):
+        table_seeds["arrivals"].append(list(world_seeds))
+        return inner["arrivals"](world_seeds, *args)
+
+    def fault_table(world_seeds, *args):
+        table_seeds["faults"].append(list(world_seeds))
+        return inner["faults"](world_seeds, *args)
+
+    def to_vector(k):
+        to_vector_calls.append(id(k))
+        return inner["to_vector"](k)
+
+    def run_worlds(params, knob_list, world_seeds, *args, **kwargs):
+        to_vector_calls.clear()
+        out = inner["run_worlds"](params, knob_list, world_seeds, *args,
+                                  **kwargs)
+        calls.append((list(knob_list), list(world_seeds),
+                      list(to_vector_calls)))
+        return out
+
+    monkeypatch.setattr(world, "arrivals_table", arrivals_table)
+    monkeypatch.setattr(world, "fault_table", fault_table)
+    monkeypatch.setattr(kb, "to_vector", to_vector)
+    monkeypatch.setattr(search, "run_worlds", run_worlds)
+    search.run_sweep(params, lam, [MODEL], algo="grid", grid="smoke",
+                     n_train=3, n_holdout=2, sweep_seed=7, chunk=4,
+                     device=CPU)
+    train, holdout = search.split_seeds(3, 2, 7)
+    assert table_seeds["arrivals"] == table_seeds["faults"] == [train,
+                                                                holdout]
+    assert len(calls) == 2
+    n_points = len(kb.grid_points("smoke"))
+    for (knob_list, world_seeds, converted), points in zip(
+            calls, (n_points, 2)):
+        distinct = {id(k) for k in knob_list}
+        assert len(distinct) == points
+        assert set(converted) == distinct
+        assert max(converted.count(i) for i in distinct) <= 2
+    assert calls[0][1] == [s for _ in range(n_points) for s in train]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_smoke_sweep_json_equals_the_golden(scenario, chunk):
+    report = search.run_sweep(PARAMS, scenario[0], [MODEL], chunk=chunk,
+                              device=CPU, **SMOKE_SWEEP)
+    golden = ROOT / "tests" / "goldens" / "sweep_smoke_recommendations_v1.json"
+    assert search.dump_recommendations(report) == golden.read_text(
+        encoding="utf-8")

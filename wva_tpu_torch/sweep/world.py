@@ -38,7 +38,8 @@ it rides in a chunk of 1 or 256 (asserted by
 ``tests/test_torch_sweep_kernel.py`` and ``chip_smoke.py``). All randomness (Poisson arrivals, fault
 windows) is precomputed on the host from per-world seeds
 (``numpy.random.Philox`` / :mod:`wva_tpu_torch.utils.seeds`), keyed by the
-world seed alone — never by batch position.
+world seed alone — never by batch position — so :func:`run_worlds` builds
+a seed's tables once however many worlds share it.
 
 :func:`run_world_python` is the same recurrence as a per-world scalar
 Python loop — the honest baseline ``make bench-sweep`` quotes the
@@ -406,6 +407,20 @@ def run_chunk_plain(params: WorldParams, knob_rows, lam_t, arrivals, faults,
     return attain, chip_s, wd, total
 
 
+def _first_seen(keys) -> tuple[list[int], np.ndarray]:
+    """The distinct ``keys`` in first-seen order: the position of each
+    one's first appearance, and each key's index among them (so
+    ``distinct[inverse]`` gives back one entry a key)."""
+    slot: dict = {}
+    firsts, inverse = [], []
+    for i, key in enumerate(keys):
+        if key not in slot:
+            slot[key] = len(firsts)
+            firsts.append(i)
+        inverse.append(slot[key])
+    return firsts, np.asarray(inverse, dtype=np.intp)
+
+
 def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
                chunk: int = 256, init_replicas: float = 1.0,
                arrivals: np.ndarray | None = None,
@@ -418,6 +433,14 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
     (on the CPU, its plain version), and the dispatch counter is noted once
     per chunk, as the reference notes its one program per chunk.
 
+    The host inputs are built once per distinct key and gathered back to
+    one a world: the arrival and fault tables (those not passed in) once
+    per distinct seed (``int(seed)``, first-seen order), the knob row and
+    degeneracy flag once per distinct knob object (by identity: equality
+    would merge a ``-0.0`` point with its ``0.0`` twin). A search's points
+    x seeds worlds thus build one table a seed and one row a point, and
+    every world gets the bits a build of its own would give.
+
     Returns per-world arrays: ``attainment [W, M]``,
     ``chip_seconds [W, M]``, ``wrong_direction [W, M]``,
     ``objective [W, M]`` (LOSS_SCORE for NaN/degenerate worlds) and the
@@ -425,9 +448,10 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
 
     With a span recorder (``obs.spans``, a root open) the call is the
     span ``run_worlds`` (worlds and chunk width as attributes), with the
-    children ``tables`` (the seeded arrival and fault tables),
-    ``knob_rows``, one ``chunk`` a chunk (``stage``: its inputs to the
-    device; ``launch``; ``readback``) and ``score``.
+    children ``tables`` (the seeded arrival and fault tables; ``worlds``
+    and the distinct ``seeds`` built), ``knob_rows`` (``worlds`` and the
+    distinct ``points`` converted), one ``chunk`` a chunk (``stage``: its
+    inputs to the device; ``launch``; ``readback``) and ``score``.
     """
     dev = resolve_device(device)
     w_total = len(knob_list)
@@ -437,16 +461,22 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
     width = max(chunk, 1)
     with scoped(spans, "run_worlds", worlds=w_total, chunk=width):
         if arrivals is None or faults is None:
-            with scoped(spans, "tables"):
+            keys = [int(seed) for seed in world_seeds]
+            firsts, inverse = _first_seen(keys)
+            distinct = [keys[i] for i in firsts]
+            with scoped(spans, "tables", worlds=w_total,
+                        seeds=len(distinct)):
                 if arrivals is None:
-                    arrivals = arrivals_table(world_seeds, lam, params)
+                    arrivals = arrivals_table(distinct, lam, params)[inverse]
                 if faults is None:
-                    faults = fault_table(world_seeds, m, params)
-        with scoped(spans, "knob_rows"):
-            rows = np.asarray([kb.to_vector(k) for k in knob_list],
-                              dtype=np.float32)
+                    faults = fault_table(distinct, m, params)[inverse]
+        firsts, inverse = _first_seen([id(k) for k in knob_list])
+        points = [knob_list[i] for i in firsts]
+        with scoped(spans, "knob_rows", worlds=w_total, points=len(points)):
+            rows = np.asarray([kb.to_vector(k) for k in points],
+                              dtype=np.float32)[inverse]
             degenerate = np.asarray([kb.is_degenerate(k)
-                                     for k in knob_list])
+                                     for k in points])[inverse]
 
         outs = {"attainment": [], "chip_seconds": [], "wrong_direction": [],
                 "arrivals_total": []}
