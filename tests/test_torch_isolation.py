@@ -662,6 +662,72 @@ SPAN_EDITS = {
          '            demuxed["__versions__"] = versions\n'
          '        self._count("demuxed", len(slices))\n'
          "        for (model, ns), values in slices.items():\n"),
+        # The shared view remembers the templates its callers asked for; the
+        # sharded plane's warm-up runs only those.
+        ('        self._count_mu = threading.Lock()\n'
+         '        self._counts = {"queries": 0, "memo_hits": 0, "demuxed": 0}\n'
+         '\n'
+         '    def counts(self) -> dict[str, int]:\n'
+         '        """A copy of this view\'s counts so far."""\n'
+         '        with self._count_mu:\n'
+         '            return dict(self._counts)\n',
+         '        self._count_mu = threading.Lock()\n'
+         '        self._counts = {"queries": 0, "memo_hits": 0, "demuxed": 0}\n'
+         "        # Templates this tick's callers asked for (the fleet warm-up\n"
+         '        # excluded): what the sharded plane warms on its next tick.\n'
+         '        self._requested: set[str] = set()\n'
+         '\n'
+         '    def counts(self) -> dict[str, int]:\n'
+         '        """A copy of this view\'s counts so far."""\n'
+         '        with self._count_mu:\n'
+         '            return dict(self._counts)\n'
+         '\n'
+         '    def requested(self) -> frozenset[str]:\n'
+         '        """The templates this tick\'s collectors and fingerprints asked\n'
+         '        for, whether or not :meth:`warm_fleet_queries` ran them first."""\n'
+         '        return frozenset(self._requested)\n'),
+        ('        names = list(spec.queries) or self._source.query_list().names()\n'
+         '        results: dict[str, MetricResult] = {}\n',
+         '        names = list(spec.queries) or self._source.query_list().names()\n'
+         '        self._requested.update(names)\n'
+         '        results: dict[str, MetricResult] = {}\n'),
+        ('    def warm_fleet_queries(self, params: dict[str, str]) -> None:\n',
+         '    def warm_fleet_queries(self, params: dict[str, str],\n'
+         '                           names=None) -> None:\n'),
+        ('        have done — decisions and fingerprints are byte-identical."""\n'
+         '        for name in self._source.query_list().names():\n'
+         '            try:\n',
+         '        have done — decisions and fingerprints are byte-identical.\n'
+         '        ``names`` limits the warm-up to those templates (the previous\n'
+         "        tick's :meth:`requested`), so templates no caller reads — the\n"
+         "        tuner's per-pod rates with the tuner off — are not run at all, as\n"
+         '        the unsharded tick never runs them; a template first asked for\n'
+         '        later is run by its first caller."""\n'
+         '        for name in self._source.query_list().names():\n'
+         '            if names is not None and name not in names:\n'
+         '                continue\n'
+         '            try:\n'),
+        ('        parts: list[tuple] = []\n'
+         '        for name in queries:\n'
+         '            template = self._source.query_list().get(name)\n',
+         '        parts: list[tuple] = []\n'
+         '        self._requested.update(queries)\n'
+         '        for name in queries:\n'
+         '            template = self._source.query_list().get(name)\n'),
+        ('        if not model:\n'
+         '            return ()\n'
+         '        for name in queries:\n',
+         '        if not model:\n'
+         '            return ()\n'
+         '        self._requested.update(queries)\n'
+         '        for name in queries:\n'),
+        ('        if not pairs:\n'
+         '            return {}\n'
+         '        for name in queries:\n',
+         '        if not pairs:\n'
+         '            return {}\n'
+         '        self._requested.update(queries)\n'
+         '        for name in queries:\n'),
     ],
     "engines/saturation/engine.py": [
         ("        self.last_tick_phase_seconds: dict[str, float] = {}\n"
@@ -919,6 +985,228 @@ SPAN_EDITS = {
          "                self.slo_tuner.observe(namespace, model_id, accelerator, env,\n"
          "                                       spans=self.spans)\n"
          "\n"),
+        # The sharded plane's spans, the capture built after the stage
+        # and the fleet solve on the rates the workers sized.
+        ("                # lease-holder may run it (docs/design/sharding.md).\n"
+         "                self._capture_global_requests(global_reqs)\n"
+         "                global_reqs = []\n",
+         "                # lease-holder may run it (docs/design/sharding.md).\n"
+         "                # Encoded with the rest of the capture, after the stage.\n"
+         "                self.shard_ctx.global_requests = global_reqs\n"
+         "                global_reqs = []\n"),
+        ("        cap = self.shard_ctx.capture\n"
+         "        for req in reqs:\n",
+         "        cap = self.shard_ctx.capture\n"
+         "        # Each pair's throughput as this tick's fused program sized it,\n"
+         "        # so the fleet solve reuses the rates instead of sizing again.\n"
+         "        sized: dict[tuple[str, str], dict[str, float]] = {}\n"
+         "        for (model_id, namespace, acc), rate in \\\n"
+         "                (self._tick_presized or {}).items():\n"
+         "            sized.setdefault((model_id, namespace), {})[acc] = rate\n"
+         "        for req in reqs:\n"),
+        ('                    "variant_states": [bb_encode(vs)\n'
+         "                                       for vs in req.variant_states]})\n"
+         "\n",
+         '                    "variant_states": [bb_encode(vs)\n'
+         "                                       for vs in req.variant_states],\n"
+         '                    "presized": sized.get((req.model_id, req.namespace),\n'
+         "                                          {})})\n"
+         "\n"),
+        ("            ENTRY_CACHED,\n"
+         "            ENTRY_LOCAL,\n",
+         "            ENTRY_CACHED,\n"
+         "            ENTRY_GLOBAL,\n"
+         "            ENTRY_LOCAL,\n"),
+        ("        cap = ctx.capture\n"
+         "        by_key: dict[str, list[VariantDecision]] = {}\n",
+         "        cap = ctx.capture\n"
+         "        if self.spans is not None:\n"
+         "            self.spans.annotate(self._span_root, owned=sum(\n"
+         "                len(vas) for vas in owned.values()))\n"
+         '        capture = self._open_span("shard_capture", shard=cap.shard_id)\n'
+         "        self._capture_global_requests(ctx.global_requests)\n"
+         "        by_key: dict[str, list[VariantDecision]] = {}\n"),
+        ("        for key in sorted(owned):\n"
+         "            if key in cap.entries:  # fleet-solved: captured at the split\n"
+         "                continue\n",
+         "        for key in sorted(owned):\n"
+         "            if key in cap.entries:  # fleet-solved: encoded above\n"
+         "                continue\n"),
+        ("        cap.published_at = self.clock.now()\n"
+         "\n",
+         "        cap.published_at = self.clock.now()\n"
+         "        if capture is not None:\n"
+         "            self.spans.annotate(capture.span, **{\n"
+         "                kind: sum(e.kind == kind for e in cap.entries.values())\n"
+         "                for kind in (ENTRY_LOCAL, ENTRY_GLOBAL, ENTRY_CACHED)})\n"
+         "        self._close_span(capture)\n"
+         "\n"),
+        ("        use_slo = analyzer_name == SLO_ANALYZER_NAME\n"
+         "        tick = self.shard_plane.gather(model_groups, collector=collector,\n"
+         "                                       spans=self.spans)\n"
+         "        # Stitch: every worker's span subtree — stamped with (fleet tick\n",
+         "        use_slo = analyzer_name == SLO_ANALYZER_NAME\n"
+         '        with self._obs_span("shard_gather") as gather_span:\n'
+         "            tick = self.shard_plane.gather(model_groups, collector=collector,\n"
+         "                                           spans=self.spans,\n"
+         "                                           trace=self.flight is not None)\n"
+         "        if gather_span is not None:\n"
+         "            self.spans.annotate(\n"
+         "                gather_span, alive=len(tick.alive), moves=len(tick.moves),\n"
+         "                stale=len(tick.stale), uncovered=len(tick.uncovered))\n"
+         "        # Stitch: every worker's span subtree — stamped with (fleet tick\n"),
+        ("            self.spans.graft(tick.spans)\n"
+         '        merge_span = (self.spans.begin_span("fleet_merge",\n'
+         "                                            shards=len(tick.alive))\n"
+         "                      if self.spans is not None else None)\n"
+         "\n",
+         "            self.spans.graft(tick.spans)\n"
+         '        merge = self._open_span("fleet_merge", shards=len(tick.alive))\n'
+         "\n"),
+        ("\n"
+         "        # 1. The per-model record stream, exactly as the unsharded stage-2\n"
+         "        # merge loop would have emitted it: sorted by group key (records\n"
+         "        # within one group keep their shard-side emission order).\n"
+         "        self._replay_trace_records(section(tick.trace, SECTION_MODELS))\n"
+         "\n"
+         "        # 2. Fleet-level solve over the shards' summaries, then the\n"
+         "        # enforcer bridge for the solved models (records buffered so the\n"
+         "        # merged enforcer stream below stays in sorted request order).\n"
+         "        decisions: list[VariantDecision] = []\n",
+         "\n"
+         "        # 1. Fleet-level solve over the shards' summaries, then the\n"
+         "        # enforcer bridge for the solved models (records buffered so the\n"
+         "        # merged enforcer stream below stays in sorted request order).\n"
+         "        # The solve records nothing, so the re-emission below keeps the\n"
+         "        # unsharded engine's record order.\n"
+         "        decisions: list[VariantDecision] = []\n"),
+        ("        fleet_enforce: list = []\n"
+         "        if global_entries:\n"
+         "            slo_cfg_by_ns = (self._sync_slo_config(model_groups)\n"
+         "                             if use_slo else {})\n"
+         "            reqs = [self._decode_global_request(e) for e in global_entries]\n"
+         "            decisions.extend(self._optimize_global(reqs, slo_cfg_by_ns))\n",
+         "        fleet_enforce: list = []\n"
+         '        with self._obs_span("merge_decode", **{"global": len(global_entries)}):\n'
+         "            reqs = [self._decode_global_request(e) for e in global_entries]\n"
+         "            # The workers' fused programs sized every fleet-solved pair:\n"
+         "            # the solve reuses their rates, as the unsharded tick does.\n"
+         "            self._tick_presized = {\n"
+         "                (e.model_id, e.namespace, acc): rate\n"
+         "                for e in global_entries\n"
+         "                for acc, rate in (e.global_request or {}).get(\n"
+         '                    "presized", {}).items()} or None\n'
+         "        if reqs:\n"
+         "            slo_cfg_by_ns = (self._sync_slo_config(model_groups)\n"
+         "                             if use_slo else {})\n"
+         "            decisions.extend(self._optimize_global(reqs, slo_cfg_by_ns))\n"),
+        ("\n"
+         "        # 3. + 4. Optimizer stages (shard-local cost-aware passes), then\n"
+         "        # the enforcer stream — shard-local and fleet-solved records merged\n"
+         "        # into one sorted-request-order sequence.\n"
+         "        self._replay_trace_records(section(tick.trace, SECTION_OPTIMIZER))\n"
+         "        self._replay_trace_records(\n"
+         "            section(list(tick.trace) + fleet_enforce, SECTION_ENFORCE))\n"
+         "\n"
+         "        # 5. ONE merged forecast stage (plans in the planner's own\n"
+         "        # (namespace, model) order across every shard).\n"
+         "        if self.flight is not None and tick.plans:\n"
+         "            def plan_key(p):\n"
+         '                return (p.get("namespace", ""), p.get("model_id", ""))\n'
+         "            self.flight.record_stage(STAGE_FORECAST, {\n"
+         '                "plans": sorted(tick.plans, key=plan_key),\n'
+         '                "floors": sorted(tick.floors, key=plan_key),\n'
+         '                "raised": tick.raised})\n'
+         "\n"
+         "        # 6. Merge decisions. The unsharded orders differ per path: V1\n"
+         "        # interleaves fresh and re-emitted decisions per sorted group; the\n",
+         "\n"
+         '        with self._obs_span("merge_reemit") as reemit:\n'
+         "            # 2. The per-model record stream, exactly as the unsharded\n"
+         "            # stage-2 merge loop would have emitted it: sorted by group\n"
+         "            # key (records within one group keep their shard-side\n"
+         "            # emission order). 3. + 4. Optimizer stages (shard-local\n"
+         "            # cost-aware passes), then the enforcer stream — shard-local\n"
+         "            # and fleet-solved records merged into one sorted-request-order\n"
+         "            # sequence.\n"
+         "            records = (section(tick.trace, SECTION_MODELS)\n"
+         "                       + section(tick.trace, SECTION_OPTIMIZER)\n"
+         "                       + section(list(tick.trace) + fleet_enforce,\n"
+         "                                 SECTION_ENFORCE))\n"
+         "            self._replay_trace_records(records)\n"
+         "\n"
+         "            # 5. ONE merged forecast stage (plans in the planner's own\n"
+         "            # (namespace, model) order across every shard).\n"
+         "            if self.flight is not None and tick.plans:\n"
+         "                def plan_key(p):\n"
+         '                    return (p.get("namespace", ""), p.get("model_id", ""))\n'
+         "                self.flight.record_stage(STAGE_FORECAST, {\n"
+         '                    "plans": sorted(tick.plans, key=plan_key),\n'
+         '                    "floors": sorted(tick.floors, key=plan_key),\n'
+         '                    "raised": tick.raised})\n'
+         "\n"
+         "            # 6. Topology-change observability: recorded ONLY when\n"
+         "            # ownership moved (steady-state sharded traces stay\n"
+         "            # byte-identical to the unsharded engine's).\n"
+         "            if self.flight is not None and (tick.moves or tick.stale):\n"
+         "                self.flight.record_stage(STAGE_SHARD, {\n"
+         '                    "moves": list(tick.moves),\n'
+         '                    "holds_opened": sorted(tick.holds_opened),\n'
+         '                    "alive_shards": sorted(tick.alive),\n'
+         '                    "stale_shards": sorted(tick.stale),\n'
+         '                    "uncovered_models": sorted(tick.uncovered),\n'
+         "                })\n"
+         "            if reemit is not None:\n"
+         "                self.spans.annotate(reemit, records=(\n"
+         "                    len(records) if self.flight is not None else 0))\n"
+         "\n"
+         "        # 7. Merge decisions. The unsharded orders differ per path: V1\n"
+         "        # interleaves fresh and re-emitted decisions per sorted group; the\n"),
+        ("                decisions.extend(tick.entries[k].decisions)\n"
+         "\n"
+         "        # 7. Topology-change observability: recorded ONLY when ownership\n"
+         "        # moved (steady-state sharded traces stay byte-identical to the\n"
+         "        # unsharded engine's).\n"
+         "        if self.flight is not None and (tick.moves or tick.stale):\n"
+         "            self.flight.record_stage(STAGE_SHARD, {\n"
+         '                "moves": list(tick.moves),\n'
+         '                "holds_opened": sorted(tick.holds_opened),\n'
+         '                "alive_shards": sorted(tick.alive),\n'
+         '                "stale_shards": sorted(tick.stale),\n'
+         '                "uncovered_models": sorted(tick.uncovered),\n'
+         "            })\n"
+         "\n",
+         "                decisions.extend(tick.entries[k].decisions)\n"
+         "\n"),
+        ("\n"
+         "        if self.spans is not None:\n"
+         "            self.spans.end_span(merge_span, decisions=len(decisions))\n"
+         "        self._apply_limiter(decisions)\n",
+         "\n"
+         "        if merge is not None:\n"
+         "            self.spans.annotate(merge.span, decisions=len(decisions))\n"
+         "        self._close_span(merge)\n"
+         "        self._apply_limiter(decisions)\n"),
+        ("            # the planner's own order) — per-shard stage records would\n"
+         "            # break trace byte-identity with the unsharded engine.\n"
+         "            from wva_tpu_torch.blackbox.schema import encode as bb_encode\n"
+         "\n"
+         "            cap = self.shard_ctx.capture\n"
+         "            cap.plans = [bb_encode(p) for p in plans]\n"
+         "            cap.floors = list(floors)\n"
+         "            cap.floors_raised = raised\n"
+         "        elif self.flight is not None and plans:\n",
+         "            # the planner's own order) — per-shard stage records would\n"
+         "            # break trace byte-identity with the unsharded engine. A\n"
+         "            # fleet that records no trace is shipped no plans.\n"
+         "            if self.flight is not None:\n"
+         "                from wva_tpu_torch.blackbox.schema import encode as bb_encode\n"
+         "\n"
+         "                cap = self.shard_ctx.capture\n"
+         "                cap.plans = [bb_encode(p) for p in plans]\n"
+         "                cap.floors = list(floors)\n"
+         "                cap.floors_raised = raised\n"
+         "        elif self.flight is not None and plans:\n"),
     ],
     "sweep/search.py": [
         ("                    chunk: int = 256, arrivals=None, faults=None,\n"
@@ -1071,6 +1359,149 @@ SPAN_EDITS = {
          "    finally:\n"
          "        if spans is not None:\n"
          "            spans.end_tick(outcome)\n"),
+    ],
+    "shard/plane.py": [
+        # The sharded plane's spans, the capture built after the stage
+        # and the fleet solve on the rates the workers sized.
+        (")\n"
+         "from wva_tpu_torch.shard.hashring import HashRing, ownership_moves\n",
+         ")\n"
+         "from wva_tpu_torch.obs.spans import scoped\n"
+         "from wva_tpu_torch.shard.hashring import HashRing, ownership_moves\n"),
+        ("    capture: ShardCapture\n"
+         "\n",
+         "    capture: ShardCapture\n"
+         "    # The tick's fleet-solved requests, encoded into the capture with its\n"
+         "    # other entries once the worker's decision stage has run.\n"
+         "    global_requests: list = field(default_factory=list)\n"
+         "\n"),
+        ("                clock: Clock, collector=None,\n"
+         "                fleet_spans=None) -> ShardCapture:\n"
+         "        \"\"\"One worker analysis tick over the owned partition. The engine's\n",
+         "                clock: Clock, collector=None,\n"
+         "                fleet_spans=None, trace: bool = True) -> ShardCapture:\n"
+         "        \"\"\"One worker analysis tick over the owned partition. The engine's\n"),
+        ("        tick — process-per-shard workers leave it None and the backend\n"
+         '        computes it server-side per query instead."""\n'
+         "        eng = self.engine\n"
+         "        buf = TraceBuffer()\n"
+         "        cap = ShardCapture(shard_id=self.shard_id, epoch=epoch)\n",
+         "        tick — process-per-shard workers leave it None and the backend\n"
+         "        computes it server-side per query instead. ``trace`` False (the\n"
+         "        fleet records no trace) captures no records: the fleet would drop\n"
+         '        them."""\n'
+         "        eng = self.engine\n"
+         "        buf = TraceBuffer() if trace else None\n"
+         "        cap = ShardCapture(shard_id=self.shard_id, epoch=epoch)\n"),
+        ("            eng.spans = None\n"
+         "        cap.trace = buf.records\n"
+         "        if wrec is not None:\n",
+         "            eng.spans = None\n"
+         "        cap.trace = buf.records if buf is not None else []\n"
+         "        if wrec is not None:\n"),
+        ("    def gather(self, model_groups: dict, collector=None,\n"
+         "               spans=None) -> PlaneTick:\n"
+         "        now = self.clock.now()\n",
+         "    def gather(self, model_groups: dict, collector=None,\n"
+         "               spans=None, trace: bool = True) -> PlaneTick:\n"
+         "        now = self.clock.now()\n"),
+        ("                first = model_groups[sorted(model_groups)[0]][0]\n"
+         "                warm({PARAM_MODEL_ID: first.spec.model_id,\n"
+         "                      PARAM_NAMESPACE: first.metadata.namespace})\n"
+         "        held = self.leases.tick()\n"
+         "        alive = sorted(held)\n",
+         "                first = model_groups[sorted(model_groups)[0]][0]\n"
+         '                with scoped(spans, "fleet_queries"):\n'
+         "                    warm({PARAM_MODEL_ID: first.spec.model_id,\n"
+         "                          PARAM_NAMESPACE: first.metadata.namespace})\n"
+         '        with scoped(spans, "shard_leases", shards=self.leases.shards):\n'
+         "            held = self.leases.tick()\n"
+         "        alive = sorted(held)\n"),
+        ("        self.last_alive = alive\n"
+         "        model_ids = sorted({vas[0].spec.model_id\n",
+         "        self.last_alive = alive\n"
+         '        ring_span = spans.begin_span("ring") if spans is not None else None\n'
+         "        model_ids = sorted({vas[0].spec.model_id\n"),
+        ("            tick.uncovered = model_ids\n"
+         "            self._emit_gauges({}, {}, now)\n",
+         "            tick.uncovered = model_ids\n"
+         "            if spans is not None:\n"
+         "                spans.end_span(ring_span)\n"
+         "            self._emit_gauges({}, {}, now)\n"),
+        ("            owned_by_shard[shard].add(mid)\n"
+         "\n",
+         "            owned_by_shard[shard].add(mid)\n"
+         "        if spans is not None:\n"
+         "            spans.end_span(ring_span)\n"
+         "\n"),
+        ("                                         collector=collector,\n"
+         "                                         fleet_spans=spans)\n"
+         "                    self.bus.publish(cap)\n",
+         "                                         collector=collector,\n"
+         "                                         fleet_spans=spans, trace=trace)\n"
+         "                    self.bus.publish(cap)\n"),
+        # The warm-up takes the templates the last tick's workers asked for.
+        ('        self.last_alive: list[int] = []\n'
+         '\n'
+         '    # --- fleet-tick entry point ---\n',
+         '        self.last_alive: list[int] = []\n'
+         "        # The templates the last tick's workers asked the shared view for:\n"
+         '        # what the next tick warms (None, before a first tick: all).\n'
+         '        self._warm_names: frozenset[str] | None = None\n'
+         '\n'
+         '    # --- fleet-tick entry point ---\n'),
+        ('                          PARAM_NAMESPACE: first.metadata.namespace})\n',
+         '                          PARAM_NAMESPACE: first.metadata.namespace},\n'
+         '                         self._warm_names)\n'),
+        ('            tick.skipped += cap.skipped\n'
+         '\n'
+         '        tick.moves = moves\n',
+         '            tick.skipped += cap.skipped\n'
+         '\n'
+         '        requested = getattr(getattr(collector, "source", None),\n'
+         '                            "requested", None)\n'
+         '        if requested is not None and self.last_worker_seconds:\n'
+         '            self._warm_names = requested()\n'
+         '        tick.moves = moves\n'),
+    ],
+    "blackbox/schema.py": [
+        # Each dataclass's fields and type hints resolved once, not per decode.
+        ('def decode(cls, data):\n'
+         '    """Reconstruct dataclass ``cls`` from :func:`encode` output. Unknown keys\n'
+         '    are ignored (forward compatibility with newer trace schemas)."""\n'
+         '    if data is None:\n'
+         '        return None\n'
+         '    hints = get_type_hints(cls)\n'
+         '    kwargs = {}\n'
+         '    for f in dataclasses.fields(cls):\n'
+         '        if f.name in data:\n'
+         '            kwargs[f.name] = _decode_value(hints.get(f.name), data[f.name])\n'
+         '    return cls(**kwargs)\n',
+         '# dataclass -> ((field name, resolved type hint), ...): resolving the hints\n'
+         "# evaluates every string annotation, most of a decode's time; a class's\n"
+         '# fields and hints never change, so each class resolves them once.\n'
+         '_FIELD_HINTS: dict[type, tuple[tuple[str, object], ...]] = {}\n'
+         '\n'
+         '\n'
+         'def _field_hints(cls) -> tuple[tuple[str, object], ...]:\n'
+         '    out = _FIELD_HINTS.get(cls)\n'
+         '    if out is None:\n'
+         '        hints = get_type_hints(cls)\n'
+         '        out = _FIELD_HINTS[cls] = tuple(\n'
+         '            (f.name, hints.get(f.name)) for f in dataclasses.fields(cls))\n'
+         '    return out\n'
+         '\n'
+         '\n'
+         'def decode(cls, data):\n'
+         '    """Reconstruct dataclass ``cls`` from :func:`encode` output. Unknown keys\n'
+         '    are ignored (forward compatibility with newer trace schemas)."""\n'
+         '    if data is None:\n'
+         '        return None\n'
+         '    kwargs = {}\n'
+         '    for name, hint in _field_hints(cls):\n'
+         '        if name in data:\n'
+         '            kwargs[name] = _decode_value(hint, data[name])\n'
+         '    return cls(**kwargs)\n'),
     ],
 }
 

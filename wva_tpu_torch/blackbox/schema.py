@@ -116,16 +116,30 @@ def encode(obj):
     return obj
 
 
+# dataclass -> ((field name, resolved type hint), ...): resolving the hints
+# evaluates every string annotation, most of a decode's time; a class's
+# fields and hints never change, so each class resolves them once.
+_FIELD_HINTS: dict[type, tuple[tuple[str, object], ...]] = {}
+
+
+def _field_hints(cls) -> tuple[tuple[str, object], ...]:
+    out = _FIELD_HINTS.get(cls)
+    if out is None:
+        hints = get_type_hints(cls)
+        out = _FIELD_HINTS[cls] = tuple(
+            (f.name, hints.get(f.name)) for f in dataclasses.fields(cls))
+    return out
+
+
 def decode(cls, data):
     """Reconstruct dataclass ``cls`` from :func:`encode` output. Unknown keys
     are ignored (forward compatibility with newer trace schemas)."""
     if data is None:
         return None
-    hints = get_type_hints(cls)
     kwargs = {}
-    for f in dataclasses.fields(cls):
-        if f.name in data:
-            kwargs[f.name] = _decode_value(hints.get(f.name), data[f.name])
+    for name, hint in _field_hints(cls):
+        if name in data:
+            kwargs[name] = _decode_value(hint, data[name])
     return cls(**kwargs)
 
 

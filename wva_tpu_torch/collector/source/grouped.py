@@ -536,11 +536,19 @@ class GroupedMetricsView(MetricsSource):
         # from the version book's memo, and model slices demuxed.
         self._count_mu = threading.Lock()
         self._counts = {"queries": 0, "memo_hits": 0, "demuxed": 0}
+        # Templates this tick's callers asked for (the fleet warm-up
+        # excluded): what the sharded plane warms on its next tick.
+        self._requested: set[str] = set()
 
     def counts(self) -> dict[str, int]:
         """A copy of this view's counts so far."""
         with self._count_mu:
             return dict(self._counts)
+
+    def requested(self) -> frozenset[str]:
+        """The templates this tick's collectors and fingerprints asked
+        for, whether or not :meth:`warm_fleet_queries` ran them first."""
+        return frozenset(self._requested)
 
     def _count(self, key: str, n: int = 1) -> None:
         with self._count_mu:
@@ -564,6 +572,7 @@ class GroupedMetricsView(MetricsSource):
 
     def refresh(self, spec: RefreshSpec) -> dict[str, MetricResult]:
         names = list(spec.queries) or self._source.query_list().names()
+        self._requested.update(names)
         results: dict[str, MetricResult] = {}
         passthrough: list[str] = []
         for name in names:
@@ -646,7 +655,8 @@ class GroupedMetricsView(MetricsSource):
             self._source.store_demuxed_result(name, dict(params), result)
         return result
 
-    def warm_fleet_queries(self, params: dict[str, str]) -> None:
+    def warm_fleet_queries(self, params: dict[str, str],
+                           names=None) -> None:
         """Execute every groupable template's fleet-wide query into this
         tick view's memo (idempotent — later callers hit the OnceMap).
         The sharded fleet tick warms its SHARED view here before driving
@@ -655,8 +665,15 @@ class GroupedMetricsView(MetricsSource):
         server-side) is paid once at the fleet level instead of inside
         whichever worker happens to touch a template first. Serving and
         digest stamping are exactly what the first organic toucher would
-        have done — decisions and fingerprints are byte-identical."""
+        have done — decisions and fingerprints are byte-identical.
+        ``names`` limits the warm-up to those templates (the previous
+        tick's :meth:`requested`), so templates no caller reads — the
+        tuner's per-pod rates with the tuner off — are not run at all, as
+        the unsharded tick never runs them; a template first asked for
+        later is run by its first caller."""
         for name in self._source.query_list().names():
+            if names is not None and name not in names:
+                continue
             try:
                 self._serve_grouped(name, params)
             except Exception:  # noqa: BLE001 — warm failures re-surface
@@ -676,6 +693,7 @@ class GroupedMetricsView(MetricsSource):
         RECOMPUTED path (``WVA_FP_DELTA=off``); the shipped path is
         :meth:`slice_versions`."""
         parts: list[tuple] = []
+        self._requested.update(queries)
         for name in queries:
             template = self._source.query_list().get(name)
             if template is None:
@@ -709,6 +727,7 @@ class GroupedMetricsView(MetricsSource):
         model = params.get(PARAM_MODEL_ID)
         if not model:
             return ()
+        self._requested.update(queries)
         for name in queries:
             pre = self._tpl_pre.get(name, False)
             if pre is False:
@@ -782,6 +801,7 @@ class GroupedMetricsView(MetricsSource):
         out: dict[tuple[str, str], list] = {p: [] for p in pairs}
         if not pairs:
             return {}
+        self._requested.update(queries)
         for name in queries:
             first_model, first_ns = pairs[0]
             params = {PARAM_MODEL_ID: first_model,

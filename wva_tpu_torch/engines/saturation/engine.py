@@ -2289,7 +2289,8 @@ class SaturationEngine:
                 # demand/latency/capacity arrays in the summary — the
                 # solve couples every shard's models, so only the fleet
                 # lease-holder may run it (docs/design/sharding.md).
-                self._capture_global_requests(global_reqs)
+                # Encoded with the rest of the capture, after the stage.
+                self.shard_ctx.global_requests = global_reqs
                 global_reqs = []
             optimize = self._open_span("optimize")
             if global_reqs:
@@ -2430,6 +2431,12 @@ class SaturationEngine:
         from wva_tpu_torch.shard.summary import ENTRY_GLOBAL, ModelEntry
 
         cap = self.shard_ctx.capture
+        # Each pair's throughput as this tick's fused program sized it,
+        # so the fleet solve reuses the rates instead of sizing again.
+        sized: dict[tuple[str, str], dict[str, float]] = {}
+        for (model_id, namespace, acc), rate in \
+                (self._tick_presized or {}).items():
+            sized.setdefault((model_id, namespace), {})[acc] = rate
         for req in reqs:
             key = f"{req.model_id}|{req.namespace}"
             cap.entries[key] = ModelEntry(
@@ -2438,7 +2445,9 @@ class SaturationEngine:
                 global_request={
                     "result": bb_encode(req.result),
                     "variant_states": [bb_encode(vs)
-                                       for vs in req.variant_states]})
+                                       for vs in req.variant_states],
+                    "presized": sized.get((req.model_id, req.namespace),
+                                          {})})
 
     @staticmethod
     def _decode_global_request(entry) -> ModelScalingRequest:
@@ -2487,6 +2496,7 @@ class SaturationEngine:
         the fleet's sorted-order merge byte-identical."""
         from wva_tpu_torch.shard.summary import (
             ENTRY_CACHED,
+            ENTRY_GLOBAL,
             ENTRY_LOCAL,
             HealthSignals,
             ModelEntry,
@@ -2534,11 +2544,16 @@ class SaturationEngine:
             time.perf_counter() - analyze_start
 
         cap = ctx.capture
+        if self.spans is not None:
+            self.spans.annotate(self._span_root, owned=sum(
+                len(vas) for vas in owned.values()))
+        capture = self._open_span("shard_capture", shard=cap.shard_id)
+        self._capture_global_requests(ctx.global_requests)
         by_key: dict[str, list[VariantDecision]] = {}
         for d in decisions:
             by_key.setdefault(f"{d.model_id}|{d.namespace}", []).append(d)
         for key in sorted(owned):
-            if key in cap.entries:  # fleet-solved: captured at the split
+            if key in cap.entries:  # fleet-solved: encoded above
                 continue
             vas = owned[key]
             cap.entries[key] = ModelEntry(
@@ -2569,6 +2584,11 @@ class SaturationEngine:
         cap.tick_seq = self._tick_seq
         cap.control_age = self._control_plane_staleness()
         cap.published_at = self.clock.now()
+        if capture is not None:
+            self.spans.annotate(capture.span, **{
+                kind: sum(e.kind == kind for e in cap.entries.values())
+                for kind in (ENTRY_LOCAL, ENTRY_GLOBAL, ENTRY_CACHED)})
+        self._close_span(capture)
 
     def _optimize_sharded(self, model_groups: dict, snap: KubeClient,
                           collector: ReplicaMetricsCollector,
@@ -2592,38 +2612,47 @@ class SaturationEngine:
         from wva_tpu_torch.health import InputHealth
 
         use_slo = analyzer_name == SLO_ANALYZER_NAME
-        tick = self.shard_plane.gather(model_groups, collector=collector,
-                                       spans=self.spans)
+        with self._obs_span("shard_gather") as gather_span:
+            tick = self.shard_plane.gather(model_groups, collector=collector,
+                                           spans=self.spans,
+                                           trace=self.flight is not None)
+        if gather_span is not None:
+            self.spans.annotate(
+                gather_span, alive=len(tick.alive), moves=len(tick.moves),
+                stale=len(tick.stale), uncovered=len(tick.uncovered))
         # Stitch: every worker's span subtree — stamped with (fleet tick
         # id, shard id) in its ShardCapture — grafts under THIS tick's
         # span, so a 4-shard fleet tick is still ONE trace.
         if self.spans is not None and tick.spans:
             self.spans.graft(tick.spans)
-        merge_span = (self.spans.begin_span("fleet_merge",
-                                            shards=len(tick.alive))
-                      if self.spans is not None else None)
+        merge = self._open_span("fleet_merge", shards=len(tick.alive))
 
         def section(records, name):
             return sorted((r for r in records if r[0] == name),
                           key=lambda r: (r[1], r[2]))
 
-        # 1. The per-model record stream, exactly as the unsharded stage-2
-        # merge loop would have emitted it: sorted by group key (records
-        # within one group keep their shard-side emission order).
-        self._replay_trace_records(section(tick.trace, SECTION_MODELS))
-
-        # 2. Fleet-level solve over the shards' summaries, then the
+        # 1. Fleet-level solve over the shards' summaries, then the
         # enforcer bridge for the solved models (records buffered so the
         # merged enforcer stream below stays in sorted request order).
+        # The solve records nothing, so the re-emission below keeps the
+        # unsharded engine's record order.
         decisions: list[VariantDecision] = []
         keys = sorted(tick.entries)
         global_entries = [tick.entries[k] for k in keys
                           if tick.entries[k].kind == ENTRY_GLOBAL]
         fleet_enforce: list = []
-        if global_entries:
+        with self._obs_span("merge_decode", **{"global": len(global_entries)}):
+            reqs = [self._decode_global_request(e) for e in global_entries]
+            # The workers' fused programs sized every fleet-solved pair:
+            # the solve reuses their rates, as the unsharded tick does.
+            self._tick_presized = {
+                (e.model_id, e.namespace, acc): rate
+                for e in global_entries
+                for acc, rate in (e.global_request or {}).get(
+                    "presized", {}).items()} or None
+        if reqs:
             slo_cfg_by_ns = (self._sync_slo_config(model_groups)
                              if use_slo else {})
-            reqs = [self._decode_global_request(e) for e in global_entries]
             decisions.extend(self._optimize_global(reqs, slo_cfg_by_ns))
             buf = TraceBuffer()
             buf.begin_section(SECTION_ENFORCE)
@@ -2659,24 +2688,46 @@ class SaturationEngine:
                 self.enforcer.flight_recorder = saved
             fleet_enforce = buf.records
 
-        # 3. + 4. Optimizer stages (shard-local cost-aware passes), then
-        # the enforcer stream — shard-local and fleet-solved records merged
-        # into one sorted-request-order sequence.
-        self._replay_trace_records(section(tick.trace, SECTION_OPTIMIZER))
-        self._replay_trace_records(
-            section(list(tick.trace) + fleet_enforce, SECTION_ENFORCE))
+        with self._obs_span("merge_reemit") as reemit:
+            # 2. The per-model record stream, exactly as the unsharded
+            # stage-2 merge loop would have emitted it: sorted by group
+            # key (records within one group keep their shard-side
+            # emission order). 3. + 4. Optimizer stages (shard-local
+            # cost-aware passes), then the enforcer stream — shard-local
+            # and fleet-solved records merged into one sorted-request-order
+            # sequence.
+            records = (section(tick.trace, SECTION_MODELS)
+                       + section(tick.trace, SECTION_OPTIMIZER)
+                       + section(list(tick.trace) + fleet_enforce,
+                                 SECTION_ENFORCE))
+            self._replay_trace_records(records)
 
-        # 5. ONE merged forecast stage (plans in the planner's own
-        # (namespace, model) order across every shard).
-        if self.flight is not None and tick.plans:
-            def plan_key(p):
-                return (p.get("namespace", ""), p.get("model_id", ""))
-            self.flight.record_stage(STAGE_FORECAST, {
-                "plans": sorted(tick.plans, key=plan_key),
-                "floors": sorted(tick.floors, key=plan_key),
-                "raised": tick.raised})
+            # 5. ONE merged forecast stage (plans in the planner's own
+            # (namespace, model) order across every shard).
+            if self.flight is not None and tick.plans:
+                def plan_key(p):
+                    return (p.get("namespace", ""), p.get("model_id", ""))
+                self.flight.record_stage(STAGE_FORECAST, {
+                    "plans": sorted(tick.plans, key=plan_key),
+                    "floors": sorted(tick.floors, key=plan_key),
+                    "raised": tick.raised})
 
-        # 6. Merge decisions. The unsharded orders differ per path: V1
+            # 6. Topology-change observability: recorded ONLY when
+            # ownership moved (steady-state sharded traces stay
+            # byte-identical to the unsharded engine's).
+            if self.flight is not None and (tick.moves or tick.stale):
+                self.flight.record_stage(STAGE_SHARD, {
+                    "moves": list(tick.moves),
+                    "holds_opened": sorted(tick.holds_opened),
+                    "alive_shards": sorted(tick.alive),
+                    "stale_shards": sorted(tick.stale),
+                    "uncovered_models": sorted(tick.uncovered),
+                })
+            if reemit is not None:
+                self.spans.annotate(reemit, records=(
+                    len(records) if self.flight is not None else 0))
+
+        # 7. Merge decisions. The unsharded orders differ per path: V1
         # interleaves fresh and re-emitted decisions per sorted group; the
         # V2/SLO path appends fleet-solved, then fresh local, then cached.
         if analyzer_name in (V2_ANALYZER_NAME, SLO_ANALYZER_NAME):
@@ -2689,18 +2740,6 @@ class SaturationEngine:
         else:
             for k in keys:
                 decisions.extend(tick.entries[k].decisions)
-
-        # 7. Topology-change observability: recorded ONLY when ownership
-        # moved (steady-state sharded traces stay byte-identical to the
-        # unsharded engine's).
-        if self.flight is not None and (tick.moves or tick.stale):
-            self.flight.record_stage(STAGE_SHARD, {
-                "moves": list(tick.moves),
-                "holds_opened": sorted(tick.holds_opened),
-                "alive_shards": sorted(tick.alive),
-                "stale_shards": sorted(tick.stale),
-                "uncovered_models": sorted(tick.uncovered),
-            })
 
         self.last_tick_stats = {"analyzed": tick.analyzed,
                                 "skipped": tick.skipped}
@@ -2722,8 +2761,9 @@ class SaturationEngine:
                 if hs.scraped is not None or hs.ready is not None:
                     self._tick_coverage[key] = (hs.scraped, hs.ready)
 
-        if self.spans is not None:
-            self.spans.end_span(merge_span, decisions=len(decisions))
+        if merge is not None:
+            self.spans.annotate(merge.span, decisions=len(decisions))
+        self._close_span(merge)
         self._apply_limiter(decisions)
         return decisions
 
@@ -2825,13 +2865,15 @@ class SaturationEngine:
             # Shard-worker role: the fleet records ONE merged forecast
             # stage across every shard's plans (sorted by namespace/model,
             # the planner's own order) — per-shard stage records would
-            # break trace byte-identity with the unsharded engine.
-            from wva_tpu_torch.blackbox.schema import encode as bb_encode
+            # break trace byte-identity with the unsharded engine. A
+            # fleet that records no trace is shipped no plans.
+            if self.flight is not None:
+                from wva_tpu_torch.blackbox.schema import encode as bb_encode
 
-            cap = self.shard_ctx.capture
-            cap.plans = [bb_encode(p) for p in plans]
-            cap.floors = list(floors)
-            cap.floors_raised = raised
+                cap = self.shard_ctx.capture
+                cap.plans = [bb_encode(p) for p in plans]
+                cap.floors = list(floors)
+                cap.floors_raised = raised
         elif self.flight is not None and plans:
             self.flight.record_stage(STAGE_FORECAST, {
                 "plans": plans, "floors": floors, "raised": raised})

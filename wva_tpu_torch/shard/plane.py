@@ -39,6 +39,7 @@ from wva_tpu_torch.constants import (
     WVA_SHARD_REBALANCE_TOTAL,
     WVA_SHARD_SUMMARY_AGE_SECONDS,
 )
+from wva_tpu_torch.obs.spans import scoped
 from wva_tpu_torch.shard.hashring import HashRing, ownership_moves
 from wva_tpu_torch.shard.lease import ShardLeaseManager
 from wva_tpu_torch.shard.summary import (
@@ -61,6 +62,9 @@ class WorkerTickCtx:
 
     owned: frozenset
     capture: ShardCapture
+    # The tick's fleet-solved requests, encoded into the capture with its
+    # other entries once the worker's decision stage has run.
+    global_requests: list = field(default_factory=list)
 
     def owns(self, model_id: str) -> bool:
         return model_id in self.owned
@@ -113,7 +117,7 @@ class ShardWorker:
 
     def analyze(self, owned_model_ids: frozenset, epoch: int,
                 clock: Clock, collector=None,
-                fleet_spans=None) -> ShardCapture:
+                fleet_spans=None, trace: bool = True) -> ShardCapture:
         """One worker analysis tick over the owned partition. The engine's
         flight recorder is swapped for a TraceBuffer so every record the
         unsharded engine would have emitted is captured, section-tagged,
@@ -122,9 +126,11 @@ class ShardWorker:
         tick serve their metrics from the same memoized fleet-wide
         executions, so the O(series) evaluation is paid once per fleet
         tick — process-per-shard workers leave it None and the backend
-        computes it server-side per query instead."""
+        computes it server-side per query instead. ``trace`` False (the
+        fleet records no trace) captures no records: the fleet would drop
+        them."""
         eng = self.engine
-        buf = TraceBuffer()
+        buf = TraceBuffer() if trace else None
         cap = ShardCapture(shard_id=self.shard_id, epoch=epoch)
         eng.shard_ctx = WorkerTickCtx(owned=owned_model_ids, capture=cap)
         eng.flight = buf
@@ -150,7 +156,7 @@ class ShardWorker:
             eng.optimizer.flight_recorder = None
             eng.tick_collector_override = None
             eng.spans = None
-        cap.trace = buf.records
+        cap.trace = buf.records if buf is not None else []
         if wrec is not None:
             cap.spans, cap.span_ctx = wrec.take_capture_spans()
         return cap
@@ -180,11 +186,14 @@ class ShardPlane:
         self.rebalance_total = 0
         self.last_worker_seconds: dict[int, float] = {}
         self.last_alive: list[int] = []
+        # The templates the last tick's workers asked the shared view for:
+        # what the next tick warms (None, before a first tick: all).
+        self._warm_names: frozenset[str] | None = None
 
     # --- fleet-tick entry point ---
 
     def gather(self, model_groups: dict, collector=None,
-               spans=None) -> PlaneTick:
+               spans=None, trace: bool = True) -> PlaneTick:
         now = self.clock.now()
         # Warm the fleet's shared tick view ONCE before any worker's timed
         # analysis: the fleet-wide grouped evaluations (O(series) — what a
@@ -203,12 +212,16 @@ class ShardPlane:
                 )
 
                 first = model_groups[sorted(model_groups)[0]][0]
-                warm({PARAM_MODEL_ID: first.spec.model_id,
-                      PARAM_NAMESPACE: first.metadata.namespace})
-        held = self.leases.tick()
+                with scoped(spans, "fleet_queries"):
+                    warm({PARAM_MODEL_ID: first.spec.model_id,
+                          PARAM_NAMESPACE: first.metadata.namespace},
+                         self._warm_names)
+        with scoped(spans, "shard_leases", shards=self.leases.shards):
+            held = self.leases.tick()
         alive = sorted(held)
         tick = PlaneTick(alive=alive)
         self.last_alive = alive
+        ring_span = spans.begin_span("ring") if spans is not None else None
         model_ids = sorted({vas[0].spec.model_id
                             for vas in model_groups.values()})
         groups_by_model: dict[str, list[str]] = {}
@@ -228,6 +241,8 @@ class ShardPlane:
             # desired (the do-no-harm direction) until a lease returns.
             log.warning("shard plane: no live shard leases; holding fleet")
             tick.uncovered = model_ids
+            if spans is not None:
+                spans.end_span(ring_span)
             self._emit_gauges({}, {}, now)
             return tick
 
@@ -259,6 +274,8 @@ class ShardPlane:
         owned_by_shard: dict[int, set[str]] = {s: set() for s in alive}
         for mid, shard in assignment.items():
             owned_by_shard[shard].add(mid)
+        if spans is not None:
+            spans.end_span(ring_span)
 
         ages: dict[int, float] = {}
         self.last_worker_seconds = {}
@@ -271,7 +288,7 @@ class ShardPlane:
                 if epoch is not None:
                     cap = worker.analyze(owned, epoch, self.clock,
                                          collector=collector,
-                                         fleet_spans=spans)
+                                         fleet_spans=spans, trace=trace)
                     self.bus.publish(cap)
                     self.last_worker_seconds[shard] = \
                         worker.last_analyze_seconds
@@ -300,6 +317,10 @@ class ShardPlane:
             tick.analyzed += cap.analyzed
             tick.skipped += cap.skipped
 
+        requested = getattr(getattr(collector, "source", None),
+                            "requested", None)
+        if requested is not None and self.last_worker_seconds:
+            self._warm_names = requested()
         tick.moves = moves
         tick.holds_opened = holds_opened
         self._emit_gauges(owned_by_shard, ages, now)
