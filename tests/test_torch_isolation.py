@@ -164,8 +164,8 @@ LAZY_YAML_COPIES = {
 
 # Modules written for the port (hand ports of jax code, the kernels'
 # wrappers and builds, the graft entry points that ``__graft_entry__.py``
-# holds for the JAX package), and the loadgen copy with its own array
-# namespace.
+# holds for the JAX package, the collector policy), and the loadgen copy
+# with its own array namespace.
 PORT_MODULES = [
     "__init__.py", "device.py", "cuda_build.py", "entry.py",
     "analyzers/queueing/__init__.py", "analyzers/queueing/_build.py",
@@ -181,6 +181,7 @@ PORT_MODULES = [
     "forecast/fit_kernel.py", "forecast/forecasters.py",
     "fused/grids.py", "fused/program.py",
     "sweep/scan_kernel.py", "sweep/world.py",
+    "utils/gcpolicy.py",
 ]
 
 # Copies that differ from their originals only where the port's device
@@ -1506,6 +1507,64 @@ SPAN_EDITS = {
 }
 
 
+# The collector policy (``wva_tpu_torch/utils/gcpolicy.py``), applied after
+# the span edits: the engine reads it as each tick starts and puts its
+# counters on the tick's span; ``build_manager`` installs it on the engine
+# and its executor's tick observer, and the Manager's shutdown releases it.
+GC_POLICY_EDITS = {
+    "engines/saturation/engine.py": [
+        ("        self.spans = None\n"
+         "        self._span_root = None\n",
+         "        self.spans = None\n"
+         "        # The collector policy build_manager installs\n"
+         "        # (wva_tpu_torch/utils/gcpolicy.py): read as each tick starts, its\n"
+         "        # counters on the tick's span. None: the engine never reads the\n"
+         "        # collector.\n"
+         "        self.gc_policy = None\n"
+         "        self._span_root = None\n"),
+        ('        """One optimization tick (reference engine.go:171-277)."""\n',
+         '        """One optimization tick (reference engine.go:171-277)."""\n'
+         "        if self.gc_policy is not None:\n"
+         "            self.gc_policy.begin_tick()\n"),
+        ("                self._end_phase_span()\n"
+         "                self._span_root = None\n",
+         "                self._end_phase_span()\n"
+         "                if self.gc_policy is not None:\n"
+         "                    self.spans.annotate(self._span_root,\n"
+         "                                        **self.gc_policy.tick_attrs())\n"
+         "                self._span_root = None\n"),
+    ],
+    "main.py": [
+        ("from wva_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock\n",
+         "from wva_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock\n"
+         "from wva_tpu_torch.utils.gcpolicy import GcPolicy\n"),
+        ('    spans: "object | None" = None\n',
+         '    spans: "object | None" = None\n'
+         "    # The engine's share of the collector policy (utils/gcpolicy.py).\n"
+         '    gc_policy: "GcPolicy | None" = None\n'),
+        ("        self.engine.close()\n",
+         "        self.engine.close()\n"
+         "        if self.gc_policy is not None:\n"
+         "            self.gc_policy.release()\n"),
+        ("        ex.on_overrun = registry.observe_tick_overrun\n\n",
+         "        ex.on_overrun = registry.observe_tick_overrun\n"
+         "    # The collector policy (utils/gcpolicy.py): after each engine tick it\n"
+         "    # reads what the tick cost the interpreter's collector and, at fleet\n"
+         "    # width, freezes the standing heap and sizes the young generation to\n"
+         "    # the tick. The observer runs inside the executor's tick.\n"
+         "    gc_policy = GcPolicy()\n"
+         "    engine.gc_policy = gc_policy\n"
+         "    engine.executor.on_tick = gc_policy.observe(engine.executor.on_tick)\n"
+         "\n"),
+        ("        elector=elector, flight_recorder=flight, spans=spans,\n"
+         "    )\n",
+         "        elector=elector, flight_recorder=flight, spans=spans,\n"
+         "        gc_policy=gc_policy,\n"
+         "    )\n"),
+    ],
+}
+
+
 def _apply(want: str, edits) -> str:
     for original, port in edits:
         assert want.count(original) == 1, original
@@ -1525,11 +1584,17 @@ def test_device_copies_differ_only_in_the_device(rel):
     want = re.sub(r"\bwva_tpu\b", "wva_tpu_torch",
                   (ROOT / "wva_tpu" / rel).read_text())
     want = _apply(want, DEVICE_COPIES[rel])
-    assert (PORT / rel).read_text() == _apply(want, SPAN_EDITS.get(rel, ()))
+    want = _apply(want, SPAN_EDITS.get(rel, ()))
+    assert (PORT / rel).read_text() == _apply(want,
+                                              GC_POLICY_EDITS.get(rel, ()))
 
 
 def test_span_edits_are_held_copies():
     assert set(SPAN_EDITS) <= set(VERBATIM_COPIES) | set(DEVICE_COPIES)
+
+
+def test_gc_policy_edits_are_device_copies():
+    assert set(GC_POLICY_EDITS) <= set(DEVICE_COPIES)
 
 
 _LAZY_YAML = (

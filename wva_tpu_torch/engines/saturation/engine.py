@@ -560,6 +560,11 @@ class SaturationEngine:
         # byte-identical with the lever off OR on). None = off: no
         # recorder exists, the guards below cost one attribute read.
         self.spans = None
+        # The collector policy build_manager installs
+        # (wva_tpu_torch/utils/gcpolicy.py): read as each tick starts, its
+        # counters on the tick's span. None: the engine never reads the
+        # collector.
+        self.gc_policy = None
         self._span_root = None
         self._cur_phase_span = None
         self._span_phases: dict[str, object] = {}
@@ -765,6 +770,8 @@ class SaturationEngine:
 
     def optimize(self) -> None:
         """One optimization tick (reference engine.go:171-277)."""
+        if self.gc_policy is not None:
+            self.gc_policy.begin_tick()
         # Object-plane accounting: K8s object copies taken during THIS
         # tick (clone/thaw of a Freezable). Steady-state ticks are ~0 —
         # reads are zero-copy frozen views; a copy marks a write site.
@@ -877,6 +884,9 @@ class SaturationEngine:
                              "span_id": sp.span_id})
             if self.spans is not None:
                 self._end_phase_span()
+                if self.gc_policy is not None:
+                    self.spans.annotate(self._span_root,
+                                        **self.gc_policy.tick_attrs())
                 self._span_root = None
                 self.spans.end_tick("success" if tick_ok else "error")
             self._tick_view = None

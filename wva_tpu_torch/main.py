@@ -62,6 +62,7 @@ from wva_tpu_torch.pipeline import (
 )
 from wva_tpu_torch.utils import freeze as frz
 from wva_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
+from wva_tpu_torch.utils.gcpolicy import GcPolicy
 from wva_tpu_torch.utils.variant import get_controller_instance
 
 log = logging.getLogger(__name__)
@@ -93,6 +94,8 @@ class Manager:
     flight_recorder: "FlightRecorder | None" = None
     # Obs-plane span recorder (None = WVA_SPANS off).
     spans: "object | None" = None
+    # The engine's share of the collector policy (utils/gcpolicy.py).
+    gc_policy: "GcPolicy | None" = None
 
     _threads: list[threading.Thread] = None
     _last_election_tick: float = -1e18
@@ -224,6 +227,8 @@ class Manager:
             # retry period instead of a lease timeout.
             self.engine.shard_plane.shutdown()
         self.engine.close()
+        if self.gc_policy is not None:
+            self.gc_policy.release()
         prom = self.source_registry.get(PROMETHEUS_SOURCE_NAME)
         if prom is not None and hasattr(prom, "close"):
             prom.close()
@@ -544,6 +549,13 @@ def build_manager(
         # A tick longer than its poll interval means the loop is falling
         # behind its own cadence — surfaced as wva_tick_overruns_total.
         ex.on_overrun = registry.observe_tick_overrun
+    # The collector policy (utils/gcpolicy.py): after each engine tick it
+    # reads what the tick cost the interpreter's collector and, at fleet
+    # width, freezes the standing heap and sizes the young generation to
+    # the tick. The observer runs inside the executor's tick.
+    gc_policy = GcPolicy()
+    engine.gc_policy = gc_policy
+    engine.executor.on_tick = gc_policy.observe(engine.executor.on_tick)
 
     # Obs plane (WVA_SPANS, default on; docs/design/observability.md):
     # span-structured tick tracing with a slow-tick flight recorder and
@@ -619,4 +631,5 @@ def build_manager(
         va_reconciler=va_reconciler, configmap_reconciler=configmap_reconciler,
         pool_reconciler=pool_reconciler, capacity_store=capacity_store,
         elector=elector, flight_recorder=flight, spans=spans,
+        gc_policy=gc_policy,
     )
