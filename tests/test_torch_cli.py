@@ -3,7 +3,8 @@
 - ``forecast backtest`` (``run_backtest`` and ``python -m wva_tpu_torch
   forecast backtest``) passes the committed golden gate on
   ``tests/goldens/forecast_trace_v1.jsonl``, as ``tests/test_forecast.py``
-  holds the reference;
+  holds the reference, and its report equals the reference's (every
+  forecaster's scores a model at rtol 2e-3);
 - the CLI's ``sweep`` writes the recommendations artifact the backtest's
   ``--knobs`` reads (``tests/test_sweep_cli.py``);
 - helmlite renders ``charts/`` byte for byte as the reference's does;
@@ -53,6 +54,25 @@ def test_backtest_passes_the_golden_gate():
         golden = json.load(f)
     assert compare_to_golden(report, golden) == []
     assert report["seasonal_beats_linear"]
+
+
+def test_backtest_report_equals_the_reference():
+    from wva_tpu.forecast.backtest import run_backtest as ref_run_backtest
+    from wva_tpu_torch.forecast.backtest import compare_to_golden, run_backtest
+
+    args = dict(lead=90.0, period=600.0, grid_step=5.0, min_history=90.0)
+    got = run_backtest(TRACE, device=CPU, **args)
+    want = ref_run_backtest(TRACE, **args)
+    assert compare_to_golden(got, want) == []
+    assert ({k: v for k, v in got.items() if k not in ("models", "aggregate")}
+            == {k: v for k, v in want.items()
+                if k not in ("models", "aggregate")})
+    assert got["models"].keys() == want["models"].keys()
+    for key, per_model in want["models"].items():
+        assert got["models"][key].keys() == per_model.keys()
+        for name, stats in per_model.items():
+            assert got["models"][key][name] == pytest.approx(stats,
+                                                             rel=2e-3)
 
 
 def test_cli_backtest_passes_the_golden_gate(capsys):

@@ -6,15 +6,14 @@
   ``wva:`` range, nested as in the tree, also after an abandoned or
   errored root and where a span is left open inside a closing one; spans
   of other threads are not mirrored. On the card the ranges stay off the
-  device's timeline.
+  device's timeline. The trees it commits, and its counts, are the JAX
+  package recorder's.
 - The engine's tick tree: the fingerprint pass's ``versions`` and ``hash``,
   the fused program's ``fused_grids`` and its parts, the decision stage's
   ``decide`` and its children, the tuner's ``tuner_step``/``h_jacobian``,
   the records, and the grouped view's counts on every phase span; spans on
   and off leave statuses and trace cycles byte-identical; a tick that
   raises inside the decision stage leaves its ranges nested.
-- The sweep's ``search`` tree, results bitwise equal with and without a
-  recorder, and an exception inside a search closing it with ``error``.
 
 Worlds run on the CPU, torch on one thread.
 """
@@ -22,7 +21,6 @@ Worlds run on the CPU, torch on one thread.
 import json
 import threading
 
-import numpy as np
 import pytest
 import torch
 
@@ -86,8 +84,8 @@ class _Counting:
         return None
 
 
-def _small_tree(rec, root="tick"):
-    rec.begin_tick(engine="e", name=root)
+def _small_tree(rec):
+    rec.begin_tick(engine="e")
     with rec.span("phase"):
         with rec.span("inner", k=1):
             pass
@@ -129,7 +127,7 @@ def test_root_thread_spans_are_nested_ranges(ending):
                 rec.end_tick(ending)
         assert not rec._ranges
         # A root after an abandoned or errored one mirrors afresh.
-        rec.begin_tick(name="next")
+        rec.begin_tick()
         with rec.span("again"):
             pass
         rec.end_tick()
@@ -137,12 +135,15 @@ def test_root_thread_spans_are_nested_ranges(ending):
     names = [n for n, _, _ in ranges]
     assert sorted(names) == sorted(
         f"wva:{n}" for n in ("tick", "phase", "inner", "open", "left_open",
-                             "pushed", "next", "again"))
+                             "pushed", "tick", "again"))
     assert _nests(ranges)
-    by = {n: (a, b) for n, a, b in ranges}
+    by = {n: (a, b) for n, a, b in ranges if n != "wva:tick"}
+    # Both roots are ticks: the first and the one after it, by start.
+    by["wva:tick"], by["wva:second tick"] = sorted(
+        (a, b) for n, a, b in ranges if n == "wva:tick")
     for outer, inner in (("tick", "phase"), ("phase", "inner"),
                          ("phase", "open"), ("tick", "left_open"),
-                         ("next", "again")):
+                         ("second tick", "again")):
         (o0, o1), (i0, i1) = by[f"wva:{outer}"], by[f"wva:{inner}"]
         assert o0 <= i0 and i1 <= o1, (outer, inner)
 
@@ -218,6 +219,57 @@ def test_spans_begun_before_a_profiler_starts_are_not_mirrored():
             pass
         rec.end_tick()
     assert _wva_ranges(prof) == []
+
+
+def _script(spans, clocks):
+    """One run of a package's recorder: a span outside a tick, four ticks
+    through a ring of three, a default parent, a shard worker's adopted
+    tick grafted under the fleet's, an abandoned tick. Returns what it
+    committed and counted, durations left out."""
+    def timeless(tree):
+        return {k: [timeless(c) for c in v] if k == "children" else v
+                for k, v in tree.items() if k != "dur_ms"}
+
+    clock = clocks.FakeClock(100.0)
+    rec = spans.SpanRecorder(clock=clock, ring_size=3, engine="fleet")
+    rec.begin_span("outside")
+    for i in range(4):
+        rec.begin_tick(engine="e" if i else "", n=i)
+        with rec.span("phase", k=i) as phase:
+            clock.advance(1.0)
+            rec.end_span(rec.begin_span("open"), rows=i)
+            rec.annotate(phase, done=True)
+        rec.set_default_parent(phase)
+        rec.end_span(rec.begin_span("late"))
+        rec.end_tick("success" if i % 2 else "error")
+    worker = spans.SpanRecorder(clock=clock, engine="worker")
+    worker.adopt(rec.trace_id, 2)
+    worker.begin_tick(owned=3)
+    with worker.span("shard_capture"):
+        clock.advance(0.5)
+    worker.end_tick()
+    trees, context = worker.take_capture_spans()
+    rec.begin_tick()
+    rec.graft(trees)
+    rec.end_tick()
+    rec.begin_tick()
+    with rec.span("retried"):
+        rec.abandon_tick()
+    return ([timeless(t) for t in rec.snapshot()], context,
+            rec.ticks_total, rec.dropped_total, worker.ticks_total)
+
+
+def test_recorder_commits_the_references_trees():
+    from wva_tpu.obs import spans as ref_spans
+    from wva_tpu.utils import clock as ref_clock
+    from wva_tpu_torch.utils import clock
+
+    got = _script(spans_mod, clock)
+    assert got == _script(ref_spans, ref_clock)
+    trees = got[0]
+    assert [t["trace_id"] for t in trees] == ["t00000003", "t00000004",
+                                              "t00000005"]
+    assert "shard_tick" in json.dumps(trees[-1])
 
 
 def test_scoped_without_a_recorder_records_nothing():
@@ -428,97 +480,3 @@ def test_engine_keeps_no_stage_timers():
         assert not hasattr(mgr.engine, "last_tick_stage_seconds")
     finally:
         mgr.shutdown()
-
-
-# --- 3. the sweep's search tree ---
-
-
-def _sweep_args():
-    from wva_tpu_torch.sweep import world
-
-    params = world.WorldParams(horizon_s=300.0, dt=5.0)
-    t = (np.arange(params.steps) + 0.5) * params.dt
-    lam = (4.0 + 30.0 * np.sin(np.pi * t / params.horizon_s) ** 2)[None, :]
-    return params, lam.astype(np.float32)
-
-
-def _search(spans=None):
-    from wva_tpu_torch.sweep import search
-
-    params, lam = _sweep_args()
-    return search.run_sweep(params, lam, ["m"], algo="grid", grid="smoke",
-                            n_train=3, n_holdout=2, sweep_seed=7, chunk=4,
-                            device="cpu", spans=spans)
-
-
-def test_search_tree_and_results_bitwise_equal_with_a_recorder():
-    from wva_tpu_torch.sweep import search
-
-    plain = search.dump_recommendations(_search())
-    rec = SpanRecorder()
-    traced = search.dump_recommendations(_search(rec))
-    assert traced == plain
-    (tree,) = rec.snapshot()
-    assert tree["name"] == "search" and tree["outcome"] == "success"
-    assert tree["attrs"]["algo"] == "grid"
-    calls = [c for c in tree["children"] if c["name"] == "run_worlds"]
-    # The grid's train worlds, then the holdout walk-forward.
-    assert len(calls) == 2 and len(tree["children"]) == 2
-    first = calls[0]
-    assert first["attrs"]["chunk"] == 4
-    assert [c["name"] for c in first["children"]][:2] == ["tables",
-                                                          "knob_rows"]
-    assert first["children"][-1]["name"] == "score"
-    chunks = [c for c in first["children"] if c["name"] == "chunk"]
-    assert len(chunks) == -(-first["attrs"]["worlds"] // 4)
-    assert sum(c["attrs"]["worlds"] for c in chunks) == \
-        first["attrs"]["worlds"]
-    for c in chunks:
-        assert [g["name"] for g in c["children"]] == ["stage", "launch",
-                                                      "readback"]
-
-
-def test_search_spans_count_distinct_seeds_and_points():
-    from wva_tpu_torch.sweep import knobs
-
-    rec = SpanRecorder()
-    _search(rec)
-    (tree,) = rec.snapshot()
-    train, holdout = [c for c in tree["children"] if c["name"] == "run_worlds"]
-    n_points = len(knobs.grid_points("smoke"))
-    for call, seeds, points in ((train, 3, n_points), (holdout, 2, 2)):
-        tables, rows = call["children"][:2]
-        assert tables["name"] == "tables" and rows["name"] == "knob_rows"
-        assert tables["attrs"] == {"worlds": seeds * points, "seeds": seeds}
-        assert rows["attrs"] == {"worlds": seeds * points, "points": points}
-        assert call["attrs"]["worlds"] == seeds * points
-
-
-def test_search_error_closes_the_root_and_every_range(monkeypatch):
-    from wva_tpu_torch.sweep import world
-
-    class Stop(Exception):
-        pass
-
-    calls = {"n": 0}
-    inner = world.chunk_tensors
-
-    def chunk_tensors(*args, **kwargs):
-        calls["n"] += 1
-        if calls["n"] == 3:
-            raise Stop
-        return inner(*args, **kwargs)
-
-    monkeypatch.setattr(world, "chunk_tensors", chunk_tensors)
-    rec = SpanRecorder()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with pytest.raises(Stop):
-            _search(rec)
-        assert not rec._ranges and rec._root is None
-    (tree,) = rec.snapshot()
-    assert tree["outcome"] == "error"
-    assert "run_worlds/chunk/stage" in _paths(tree)
-    ranges = _wva_ranges(prof)
-    assert ranges and _nests(ranges)
-    assert [n for n, _, _ in ranges].count("wva:search") == 1

@@ -16,7 +16,8 @@ The scenario is the reference's smoke scenario
 - ``run_sweep`` on the smoke grid recommends the reference's knobs with
   the reference's trust verdict, and its JSON is byte-identical between
   chunks 1 and 256 and between reruns; ``sweep_cli`` writes the artifact
-  ``tests/test_sweep_cli.py`` checks.
+  ``tests/test_sweep_cli.py`` checks, with the reference CLI's
+  recommendations.
 - Without a card, ``device=None`` raises.
 - ``chip_smoke.py`` phase 7 runs the sweep at ``make bench-sweep``'s full
   shape (bench.py's ``sweep_plane_bench``).
@@ -243,6 +244,30 @@ def test_cli_artifact_byte_identical_at_batch_1(recs_path, tmp_path):
                       "--out", narrow], device=CPU) == 0
     with open(recs_path, "rb") as a, open(narrow, "rb") as b:
         assert a.read() == b.read()
+
+
+def test_cli_artifact_recommends_as_the_reference(recs_path, tmp_path):
+    from wva_tpu.sweep.cli import sweep_cli as ref_sweep_cli
+
+    path = str(tmp_path / "ref_recs.json")
+    assert ref_sweep_cli(["--smoke", "--sweep-seed", "7", "--out",
+                          path]) == 0
+    with open(recs_path, encoding="utf-8") as f:
+        got = json.load(f)
+    with open(path, encoding="utf-8") as f:
+        want = json.load(f)
+    for key in ("algo", "dt_s", "grid", "horizon_s", "seeds", "trust_policy",
+                "worlds_evaluated"):
+        assert got[key] == want[key], key
+    assert got["recommendations"].keys() == want["recommendations"].keys()
+    for model, rec in want["recommendations"].items():
+        mine = got["recommendations"][model]
+        for key in ("knobs", "applied_knobs", "incumbent_knobs"):
+            assert mine[key] == rec[key], (model, key)
+        assert mine["trust"]["trusted"] == rec["trust"]["trusted"]
+        assert mine["trust"]["evals"] == rec["trust"]["evals"]
+        assert mine["trust"]["ewma_regret"] == pytest.approx(
+            rec["trust"]["ewma_regret"], rel=5e-3, abs=1e-3)
 
 
 def test_cli_rejects_unknown_algo():

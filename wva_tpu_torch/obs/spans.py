@@ -78,13 +78,13 @@ RANGE_PREFIX = "wva:"
 
 # Spans kept in the tree but given no profiler range: each backend query
 # (about 20 a tick for one model) and the innermost parts of the launch
-# paths (the fused program's, the sweep chunk's, the EKF step's h and H).
+# paths (the fused program's, the EKF step's h and H).
 # Inside a real tick under the profiler a range costs some 5 us of host
 # time to open and close, several times its cost alone, so the ranges
 # stop at the spans that hold these; the parent's range carries their
 # time on the profiler's clock.
-TREE_ONLY = frozenset({"backend_query", "stage", "launch", "readback",
-                       "materialize", "h_jacobian"})
+TREE_ONLY = frozenset({"backend_query", "launch", "readback", "materialize",
+                       "h_jacobian"})
 
 
 def scoped(spans: "SpanRecorder | None", name: str, **attrs):
@@ -226,10 +226,7 @@ class SpanRecorder:
         with self._mu:
             self._adopted = (trace_id, int(shard_id))
 
-    def begin_tick(self, engine: str = "", name: str = "tick",
-                   **attrs) -> Span:
-        """Open a root: an engine tick, or any other unit of work recorded
-        as one tree (the sweep opens one named ``search``)."""
+    def begin_tick(self, engine: str = "", **attrs) -> Span:
         mirror = (sys.modules["torch"]._C._profiler._RecordFunctionFast
                   if _profiler_recording() else None)
         with self._mu:
@@ -243,6 +240,7 @@ class SpanRecorder:
                 name = "shard_tick"
             else:
                 self._trace_id = f"t{self._tick_seq:08d}"
+                name = "tick"
             attrs = {**attrs, "engine": engine or self.engine}
             self._span_seq += 1
             root = Span(f"s{self._span_seq}", name, self.clock.now(), attrs)

@@ -70,7 +70,7 @@ def _rng(*key) -> np.random.Generator:
 
 def evaluate_points(params: WorldParams, points, train_seeds, lam,
                     chunk: int = 256, arrivals=None, faults=None,
-                    device=None, spans=None):
+                    device=None):
     """Score every (point x seed) world in batched dispatches. Returns
     ``(scores [P, M], attain [P, M], chips [P, M], n_worlds)`` where each
     entry is the mean over train seeds (LOSS_SCORE-dominated for
@@ -79,8 +79,7 @@ def evaluate_points(params: WorldParams, points, train_seeds, lam,
     knob_list = [pt for pt in points for _ in train_seeds]
     world_seeds = [s for _ in points for s in train_seeds]
     res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,
-                     arrivals=arrivals, faults=faults, device=device,
-                     spans=spans)
+                     arrivals=arrivals, faults=faults, device=device)
     m = res["objective"].shape[1]
     obj = res["objective"].reshape(n_p, n_s, m)
     att = res["attainment"].reshape(n_p, n_s, m)
@@ -91,18 +90,17 @@ def evaluate_points(params: WorldParams, points, train_seeds, lam,
 
 def grid_search(params: WorldParams, lam, train_seeds, grid: str = "default",
                 base: kb.PolicyKnobs | None = None,
-                chunk: int = 256, device=None, spans=None) -> SweepResult:
+                chunk: int = 256, device=None) -> SweepResult:
     points = kb.grid_points(grid, base)
     scores, att, chips, n = evaluate_points(params, points, train_seeds,
-                                            lam, chunk, device=device,
-                                            spans=spans)
+                                            lam, chunk, device=device)
     return SweepResult(points, scores, att, chips, n, "grid")
 
 
 def cem_search(params: WorldParams, lam, train_seeds, sweep_seed: int = 0,
                generations: int = 4, population: int = 32,
                elite_frac: float = 0.25, chunk: int = 256,
-               device=None, spans=None) -> SweepResult:
+               device=None) -> SweepResult:
     """Cross-entropy method: seeded Gaussian over the knob box, refit
     mean/std to the elite quantile each generation."""
     names = kb.KNOB_FIELDS
@@ -118,8 +116,7 @@ def cem_search(params: WorldParams, lam, train_seeds, sweep_seed: int = 0,
         raw = mean + std * g.standard_normal((population, len(names)))
         pts = [kb.clip(kb.from_vector(row)) for row in raw]
         scores, att, chips, n = evaluate_points(params, pts, train_seeds,
-                                                lam, chunk, device=device,
-                                                spans=spans)
+                                                lam, chunk, device=device)
         n_worlds += n
         all_points += pts
         all_scores.append(scores)
@@ -138,7 +135,7 @@ def cem_search(params: WorldParams, lam, train_seeds, sweep_seed: int = 0,
 def es_search(params: WorldParams, lam, train_seeds, sweep_seed: int = 0,
               generations: int = 4, population: int = 32,
               sigma_frac: float = 0.1, chunk: int = 256,
-              device=None, spans=None) -> SweepResult:
+              device=None) -> SweepResult:
     """(mu, lambda) evolution strategy: perturb the running best with
     seeded Gaussian noise, keep the generation winner."""
     names = kb.KNOB_FIELDS
@@ -154,8 +151,7 @@ def es_search(params: WorldParams, lam, train_seeds, sweep_seed: int = 0,
         pts = [kb.clip(kb.from_vector(row)) for row in raw]
         pts[0] = kb.clip(kb.from_vector(best_vec))  # elitism
         scores, att, chips, n = evaluate_points(params, pts, train_seeds,
-                                                lam, chunk, device=device,
-                                                spans=spans)
+                                                lam, chunk, device=device)
         n_worlds += n
         all_points += pts
         all_scores.append(scores)
@@ -175,8 +171,7 @@ ALGOS = {"grid": grid_search, "cem": cem_search, "es": es_search}
 
 def walk_forward(params: WorldParams, candidate: kb.PolicyKnobs,
                  incumbent: kb.PolicyKnobs, holdout_seeds, lam,
-                 model_idx: int, chunk: int = 256, device=None,
-                 spans=None) -> dict:
+                 model_idx: int, chunk: int = 256, device=None) -> dict:
     """Walk the candidate forward over ordered held-out seeds it never
     trained on, EWMA-accumulating regret against the incumbent. Both
     policies ride the same seeds (paired comparison). Returns the trust
@@ -188,7 +183,7 @@ def walk_forward(params: WorldParams, candidate: kb.PolicyKnobs,
     knob_list = [k for s in holdout_seeds for k in pairs]
     world_seeds = [s for s in holdout_seeds for _ in pairs]
     res = run_worlds(params, knob_list, world_seeds, lam, chunk=chunk,
-                     device=device, spans=spans)
+                     device=device)
     obj = res["objective"][:, model_idx].reshape(len(holdout_seeds), 2)
     ewma = 0.0
     trail = []
@@ -237,7 +232,7 @@ def frontier(result: SweepResult, model_idx: int = 0,
 def recommend(params: WorldParams, result: SweepResult, holdout_seeds,
               lam, models, chunk: int = 256,
               incumbent: kb.PolicyKnobs | None = None,
-              device=None, spans=None) -> dict:
+              device=None) -> dict:
     """Per-model tuned-knob recommendations: the best train-seed point
     per model, walk-forward trust-gated on holdout seeds. Deterministic
     (sorted keys, fixed rounding) — byte-identical across chunk widths.
@@ -249,7 +244,7 @@ def recommend(params: WorldParams, result: SweepResult, holdout_seeds,
         best_i = int(order[0])
         cand = result.points[best_i]
         gate = walk_forward(params, cand, incumbent, holdout_seeds, lam,
-                            m, chunk=chunk, device=device, spans=spans)
+                            m, chunk=chunk, device=device)
         recs[model] = {
             "knobs": kb.config_dict(cand),
             "train_objective": round(float(result.scores[best_i, m]), 6),
@@ -295,42 +290,29 @@ def run_sweep(params: WorldParams, lam, models, algo: str = "grid",
               grid: str = "default", n_train: int = 8, n_holdout: int = 4,
               sweep_seed: int = 0, chunk: int = 256,
               generations: int = 4, population: int = 32,
-              device=None, spans=None) -> dict:
+              device=None) -> dict:
     """End-to-end: split seeds, drive the chosen algorithm on train
     seeds, trust-gate the winner on holdout seeds, return the
     recommendations report. ``device`` is where every world runs (None:
-    the CUDA card). With a span recorder (``obs.spans``) the search is
-    one tree, the root ``search`` with a ``run_worlds`` span a call
-    (:func:`~wva_tpu_torch.sweep.world.run_worlds`); an exception closes
-    it with outcome ``error``."""
-    if spans is not None:
-        spans.begin_tick(name="search", algo=algo, sweep_seed=sweep_seed)
-    outcome = "error"
-    try:
-        train, holdout = split_seeds(n_train, n_holdout, sweep_seed)
-        if algo == "grid":
-            result = grid_search(params, lam, train, grid=grid, chunk=chunk,
-                                 device=device, spans=spans)
-        elif algo == "cem":
-            result = cem_search(params, lam, train, sweep_seed=sweep_seed,
-                                generations=generations,
-                                population=population, chunk=chunk,
-                                device=device, spans=spans)
-        elif algo == "es":
-            result = es_search(params, lam, train, sweep_seed=sweep_seed,
-                               generations=generations,
-                               population=population, chunk=chunk,
-                               device=device, spans=spans)
-        else:
-            raise ValueError(f"unknown sweep algo {algo!r}; "
-                             f"choose from {sorted(ALGOS)}")
-        report = recommend(params, result, holdout, lam, models, chunk=chunk,
-                           device=device, spans=spans)
-        report["seeds"] = {"sweep_seed": sweep_seed, "train": train,
-                           "holdout": holdout}
-        report["grid"] = grid if algo == "grid" else None
-        outcome = "success"
-        return report
-    finally:
-        if spans is not None:
-            spans.end_tick(outcome)
+    the CUDA card)."""
+    train, holdout = split_seeds(n_train, n_holdout, sweep_seed)
+    if algo == "grid":
+        result = grid_search(params, lam, train, grid=grid, chunk=chunk,
+                             device=device)
+    elif algo == "cem":
+        result = cem_search(params, lam, train, sweep_seed=sweep_seed,
+                            generations=generations, population=population,
+                            chunk=chunk, device=device)
+    elif algo == "es":
+        result = es_search(params, lam, train, sweep_seed=sweep_seed,
+                           generations=generations, population=population,
+                           chunk=chunk, device=device)
+    else:
+        raise ValueError(f"unknown sweep algo {algo!r}; "
+                         f"choose from {sorted(ALGOS)}")
+    report = recommend(params, result, holdout, lam, models, chunk=chunk,
+                       device=device)
+    report["seeds"] = {"sweep_seed": sweep_seed, "train": train,
+                       "holdout": holdout}
+    report["grid"] = grid if algo == "grid" else None
+    return report

@@ -55,7 +55,6 @@ import numpy as np
 import torch
 
 from wva_tpu_torch.device import resolve_device
-from wva_tpu_torch.obs.spans import scoped
 from wva_tpu_torch.sweep import knobs as kb
 from wva_tpu_torch.sweep import scan_kernel
 from wva_tpu_torch.utils import dispatch, seeds
@@ -424,8 +423,7 @@ def _first_seen(keys) -> tuple[list[int], np.ndarray]:
 def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
                chunk: int = 256, init_replicas: float = 1.0,
                arrivals: np.ndarray | None = None,
-               faults: np.ndarray | None = None, device=None,
-               spans=None) -> dict:
+               faults: np.ndarray | None = None, device=None) -> dict:
     """Advance ``len(knob_list) == len(world_seeds)`` worlds through the
     whole horizon on ``device`` (None: the CUDA card). Each chunk's knob
     rows and its ``[T, W, M]`` arrival and fault tables go to the device
@@ -445,13 +443,6 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
     ``chip_seconds [W, M]``, ``wrong_direction [W, M]``,
     ``objective [W, M]`` (LOSS_SCORE for NaN/degenerate worlds) and the
     fleet ``score [W]``. Results are bitwise independent of ``chunk``.
-
-    With a span recorder (``obs.spans``, a root open) the call is the
-    span ``run_worlds`` (worlds and chunk width as attributes), with the
-    children ``tables`` (the seeded arrival and fault tables; ``worlds``
-    and the distinct ``seeds`` built), ``knob_rows`` (``worlds`` and the
-    distinct ``points`` converted), one ``chunk`` a chunk (``stage``: its
-    inputs to the device; ``launch``; ``readback``) and ``score``.
     """
     dev = resolve_device(device)
     w_total = len(knob_list)
@@ -459,46 +450,35 @@ def run_worlds(params: WorldParams, knob_list, world_seeds, lam: np.ndarray,
     m, t = lam.shape
     assert t == params.steps
     width = max(chunk, 1)
-    with scoped(spans, "run_worlds", worlds=w_total, chunk=width):
-        if arrivals is None or faults is None:
-            keys = [int(seed) for seed in world_seeds]
-            firsts, inverse = _first_seen(keys)
-            distinct = [keys[i] for i in firsts]
-            with scoped(spans, "tables", worlds=w_total,
-                        seeds=len(distinct)):
-                if arrivals is None:
-                    arrivals = arrivals_table(distinct, lam, params)[inverse]
-                if faults is None:
-                    faults = fault_table(distinct, m, params)[inverse]
-        firsts, inverse = _first_seen([id(k) for k in knob_list])
-        points = [knob_list[i] for i in firsts]
-        with scoped(spans, "knob_rows", worlds=w_total, points=len(points)):
-            rows = np.asarray([kb.to_vector(k) for k in points],
-                              dtype=np.float32)[inverse]
-            degenerate = np.asarray([kb.is_degenerate(k)
-                                     for k in points])[inverse]
+    if arrivals is None or faults is None:
+        keys = [int(seed) for seed in world_seeds]
+        firsts, inverse = _first_seen(keys)
+        distinct = [keys[i] for i in firsts]
+        if arrivals is None:
+            arrivals = arrivals_table(distinct, lam, params)[inverse]
+        if faults is None:
+            faults = fault_table(distinct, m, params)[inverse]
+    firsts, inverse = _first_seen([id(k) for k in knob_list])
+    points = [knob_list[i] for i in firsts]
+    rows = np.asarray([kb.to_vector(k) for k in points],
+                      dtype=np.float32)[inverse]
+    degenerate = np.asarray([kb.is_degenerate(k) for k in points])[inverse]
 
-        outs = {"attainment": [], "chip_seconds": [], "wrong_direction": [],
-                "arrivals_total": []}
-        for lo in range(0, w_total, width):
-            hi = min(lo + width, w_total)
-            with scoped(spans, "chunk", worlds=hi - lo):
-                with scoped(spans, "stage"):
-                    inputs = chunk_tensors(rows[lo:hi], lam,
-                                           arrivals[lo:hi], faults[lo:hi],
-                                           dev)
-                with scoped(spans, "launch"):
-                    parts = run_chunk(params, *inputs, float(init_replicas))
-                    dispatch.note()  # one launch per chunk x whole horizon
-                with scoped(spans, "readback"):
-                    host = torch.stack(parts).cpu().numpy()  # the one copy
-            for key, part in zip(outs, host):
-                outs[key].append(part)
-        with scoped(spans, "score"):
-            res = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
-            res["objective"] = score_objective(params, res, degenerate)
-            res["score"] = res["objective"].mean(axis=1)
-            res["degenerate"] = degenerate
+    outs = {"attainment": [], "chip_seconds": [], "wrong_direction": [],
+            "arrivals_total": []}
+    for lo in range(0, w_total, width):
+        hi = min(lo + width, w_total)
+        inputs = chunk_tensors(rows[lo:hi], lam, arrivals[lo:hi],
+                               faults[lo:hi], dev)
+        parts = run_chunk(params, *inputs, float(init_replicas))
+        dispatch.note()  # one launch per chunk x whole horizon
+        host = torch.stack(parts).cpu().numpy()  # the one copy
+        for key, part in zip(outs, host):
+            outs[key].append(part)
+    res = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
+    res["objective"] = score_objective(params, res, degenerate)
+    res["score"] = res["objective"].mean(axis=1)
+    res["degenerate"] = degenerate
     return res
 
 
